@@ -1,0 +1,39 @@
+"""The port stands alone: no module of rtap_tpu_torch/, and not
+chip_smoke.py, imports jax or anything of the JAX package rtap_tpu (an AST
+scan, so imports inside functions count too)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "rtap_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "rtap_tpu")
+
+
+def _banned(mod: str) -> bool:
+    return any(mod == b or mod.startswith(b + ".") for b in BANNED)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"chip_smoke.py", "rtap_tpu_torch/ops/tm_learn.py",
+            "rtap_tpu_torch/service/registry.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imports(path) if _banned(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
