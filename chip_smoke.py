@@ -5,7 +5,8 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit (also printed raw).
-2. build: every CUDA source under rtap_tpu_torch/csrc with nvcc for sm_90a.
+2. build: the TM learning kernel, rtap_tpu_torch/csrc/tm_learn.cu, with nvcc
+   for sm_90a.
 3. kernel vs plain: the TM learning-pass kernel against its plain PyTorch
    version on states that went through a few hundred real learning ticks
    (cluster preset, G = 64, u16 and f32 domains; NAB preset geometry,
@@ -55,7 +56,7 @@ def cuda_ms(fn, reps: int, before=None) -> float:
         a.record()
         fn()
         b.record()
-        sync()
+        torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
 
@@ -80,14 +81,6 @@ def pass_ops(args, Ac: int, N: int) -> int:
     return G * R * M * 2 * Ac + int((grow_rows * valid_winners).sum()) * M
 
 
-DEV = "cuda"  # every phase runs here; a rehearsal on the CPU may repoint it
-
-
-def sync() -> None:
-    if DEV == "cuda":
-        torch.cuda.synchronize()
-
-
 def cluster_streams(G: int, T: int, seed: int, **kw):
     from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
 
@@ -95,45 +88,49 @@ def cluster_streams(G: int, T: int, seed: int, **kw):
     return generate_cluster((G + 2) // 3, cfg=scfg, seed=seed)[:G]
 
 
-def next_learn_inputs(cfg, st, values, ts):
-    """The learning-pass kernel's inputs for one more learning tick of
-    state `st` ([G, ...]) on record (values [G, 1], ts [G])."""
-    from rtap_tpu_torch.ops.encoders import bind_offsets, encode
-    from rtap_tpu_torch.ops.sp import sp_step
+def next_learn_pass(cfg, st, values, ts):
+    """The learning pass that the main path's step would run on one more
+    learning tick of state `st` ([G, ...]) on record (values [G, 1], ts
+    [G]): the step's own stages up to the TM stage, then the TM stage's
+    own learning-pass prep."""
+    from rtap_tpu_torch.ops.step import step_stages
     from rtap_tpu_torch.ops.tm import learn_pass_inputs
 
-    off, bound = bind_offsets(values, st["enc_offset"], st["enc_bound"])
-    sdr = encode(cfg, values, ts, off, st["enc_resolution"])
-    st, active = sp_step({**st, "enc_offset": off, "enc_bound": bound}, sdr, cfg.sp, True)
-    return learn_pass_inputs(st, active, cfg.tm)
+    x = (values, ts)
+    for name, stage in step_stages(cfg, True):
+        if name == "tm":
+            return learn_pass_inputs(st, x, cfg.tm)
+        st, x = stage(st, x)
+    raise AssertionError("the step has no TM stage")
 
 
 def learned_state(cfg, G: int, ticks: int, seed: int):
-    """The next tick's kernel inputs for a [G, ...] state after `ticks`
+    """The next tick's learning pass for a [G, ...] state after `ticks`
     real learning ticks on synthetic cluster data."""
     from rtap_tpu_torch.models.state import init_state
     from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
 
     streams = cluster_streams(G, ticks + 1, seed, n_anomalies=0)
-    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).to(DEV)
-    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).to(DEV)
-    st = replicate_state_device(init_state(cfg, seed), G, DEV)
+    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).cuda()
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).cuda()
+    st = replicate_state_device(init_state(cfg, seed), G, "cuda")
     st, _ = chunk_step(st, vals[:ticks], ts[:ticks], cfg)
-    return next_learn_inputs(cfg, st, vals[ticks], ts[ticks])
+    return next_learn_pass(cfg, st, vals[ticks], ts[ticks])
 
 
-def compare_pass(name, args, cs, K, N, kernel_reps=20, plain_reps=3) -> dict:
-    """Kernel vs plain on the same inputs (each on its own copy of the
-    pools): bit-equal outputs, CUDA-event medians, the byte bound."""
+def compare_pass(name, lp, kernel_reps=20, plain_reps=3) -> dict:
+    """Kernel vs plain on one learning pass's inputs (each on its own copy
+    of the pools): bit-equal outputs, CUDA-event medians, the bound."""
     import rtap_tpu_torch.ops.tm_learn as tl
 
+    args, cs, K, N = lp.args, lp.consts, lp.K, lp.N
     base = [a.clone() for a in args[:2]]
     k_pools = [a.clone() for a in base]
     p_pools = [a.clone() for a in base]
     before = tl.launches
     got = tl.tm_learn_kernel(*k_pools, *args[2:], cs, K, N)
     want = tl.tm_learn_plain(*p_pools, *args[2:], cs, K, N)
-    sync()
+    torch.cuda.synchronize()
     names = ("presyn", "perm", "nsyn", "conn", "pot")
     pairs = list(zip(names, [*k_pools, *got], [*p_pools, *want]))
     errs = {n: (a.to(torch.float64) - b.to(torch.float64)).abs().max().item() for n, a, b in pairs}
@@ -164,8 +161,7 @@ def compare_pass(name, args, cs, K, N, kernel_reps=20, plain_reps=3) -> dict:
 
 def phase_compare(label, cfg, G, warm_ticks, seed, card) -> dict:
     t0 = time.perf_counter()
-    pargs, cs, K, N = learned_state(cfg, G, warm_ticks, seed)
-    row = compare_pass(label, pargs, cs, K, N)
+    row = compare_pass(label, learned_state(cfg, G, warm_ticks, seed))
     row.update(warm_ticks=warm_ticks, setup_s=time.perf_counter() - t0, card=card)
     emit("kernel_vs_plain", **row)
     return row
@@ -183,14 +179,12 @@ def phase_slice(G: int, T: int, seed: int, card):
     t0 = time.perf_counter()
     streams = cluster_streams(G, T, seed, anomaly_magnitude=6.0, inject_after_frac=0.25)
     gen_s = time.perf_counter() - t0
-    if DEV == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     tl.reset_launches()
-    res = replay_streams(streams, cfg, device=DEV, chunk_ticks=64)
-    sync()
+    res = replay_streams(streams, cfg, device="cuda", chunk_ticks=64)
+    torch.cuda.synchronize()
     launches = tl.launches
-    if DEV == "cuda":
-        assert launches == T, f"kernel launched {launches} times for {T} learning ticks"
+    assert launches == T, f"kernel launched {launches} times for {T} learning ticks"
     raw = res.raw
     assert raw.shape == (T, G) and np.isfinite(raw).all(), "raw has non-finite values"
     assert ((raw >= 0) & (raw <= 1)).all(), "raw outside [0, 1]"
@@ -200,16 +194,16 @@ def phase_slice(G: int, T: int, seed: int, card):
          groups=len(res.registry.groups), kernel_launches=launches, learning_ticks=T,
          elapsed_s=el, ticks_per_s=T / el, stream_ticks_per_s=G * T / el,
          state_bytes_per_stream=state_nbytes(cfg)["total"],
-         max_memory_allocated=torch.cuda.max_memory_allocated() if DEV == "cuda" else None,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
          raw_mean=float(raw.mean()), alerts=res.throughput["alerts"], data_gen_s=gen_s,
          card=card)
 
     st = res.registry.groups[0].state
-    values = torch.from_numpy(np.stack([s.values[-1:] for s in streams], 0)).to(DEV)
-    ts = torch.from_numpy(np.array([s.timestamps[-1] + 1 for s in streams], np.int32)).to(DEV)
-    pargs, cs, K, N = next_learn_inputs(cfg, st, values, ts)
+    values = torch.from_numpy(np.stack([s.values[-1:] for s in streams], 0)).cuda()
+    ts = torch.from_numpy(np.array([s.timestamps[-1] + 1 for s in streams], np.int32)).cuda()
+    lp = next_learn_pass(cfg, st, values, ts)
     del res, st
-    row = compare_pass("cluster_u16_main_path", pargs, cs, K, N, kernel_reps=10, plain_reps=2)
+    row = compare_pass("cluster_u16_main_path", lp, kernel_reps=10, plain_reps=2)
     row.update(card=card)
     emit("kernel_vs_plain", **row)
     return launches, row
@@ -226,11 +220,11 @@ def phase_card_vs_cpu(seed: int, G: int = 8, T: int = 64) -> None:
     sv = np.stack([s.values for s in small], 1)
     sts = np.stack([s.timestamps for s in small], 1)
     out = {}
-    for dev in (DEV, "cpu"):
+    for dev in ("cuda", "cpu"):
         g = StreamGroup(cluster_preset(), [s.stream_id for s in small], seed=seed, device=dev)
         r, ll, _ = g.run_chunk(sv, sts)
         out[dev] = (r, ll, state_to_numpy(g.state))
-    (rc, llc, sc), (rp, llp, sp) = out[DEV], out["cpu"]
+    (rc, llc, sc), (rp, llp, sp) = out["cuda"], out["cpu"]
     assert np.array_equal(rc, rp), "raw differs between card and CPU"
     assert np.array_equal(llc, llp), "log-likelihood differs between card and CPU"
     leaf_diff = [k for k in sc if not np.array_equal(sc[k], sp[k], equal_nan=True)]
@@ -269,13 +263,11 @@ def main() -> int:
             "cuda": torch.version.cuda}
     emit("card", **card)
 
-    # 2. build every kernel source, one nvcc per source, in parallel
-    t0 = time.perf_counter()
-    built = _build.build_all(force=True)
-    emit("build", seconds=time.perf_counter() - t0, parallel=True,
-         kernels={k: {"seconds": s, "lib": str(p.relative_to(_build.PKG_DIR.parent)),
-                      "ptxas": [ln for ln in out.splitlines() if "ptxas" in ln][-6:]}
-                  for k, (p, out, s) in built.items()})
+    # 2. build the kernel from its source
+    lib, out, secs = _build.build("tm_learn", force=True)
+    emit("build", kernel="tm_learn", seconds=secs,
+         lib=str(lib.relative_to(_build.PKG_DIR.parent)),
+         ptxas=[ln for ln in out.splitlines() if "ptxas" in ln][-6:])
 
     # 3. kernel vs plain on learned states
     cmp_rows = [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)

@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -23,7 +22,6 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("tm_learn",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -62,13 +60,6 @@ def build(name: str, force: bool = False) -> tuple[Path, str, float]:
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
     return out, (res.stdout + res.stderr).strip(), secs
-
-
-def build_all(force: bool = False) -> dict[str, tuple[Path, str, float]]:
-    """Build every kernel source in parallel, one nvcc per source."""
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:
-        futs = {k: ex.submit(build, k, force) for k in KERNELS}
-        return {k: f.result() for k, f in futs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,7 +9,8 @@ leading G axis. Both pool layouts:
 * dense: ``potential`` bool [G, C, n_in]; overlap is a 0/1 f32 product left
   to ``torch.matmul`` (the JAX package leaves it to XLA). Counts stay exact
   integers below 2^24; TF32 would break that, so the product refuses to run
-  with ``torch.backends.cuda.matmul.allow_tf32`` on.
+  with ``torch.backends.cuda.matmul.allow_tf32`` on (the entry points turn
+  it off: ``StreamGroup`` on cuda, ``chip_smoke.py``).
 
 Inhibition is top-k over the unique score ``overlap*C + (C-1-c)``, so the
 winners are those of the JAX package's ``lax.top_k`` exactly. Quantized
@@ -52,9 +53,9 @@ def sp_overlap(perm: torch.Tensor, pool: torch.Tensor, sdr: torch.Tensor,
         connected = (_compute(perm, dom) >= thr) & (pool >= 0)
         hit = _gather_sdr(pool, sdr)
         return (connected & hit).sum(-1, dtype=torch.int32)
-    if perm.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        assert not torch.backends.cuda.matmul.allow_tf32, "TF32 breaks exact overlap counts"
+    if perm.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the dense SP overlap needs exact f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
     connected = ((_compute(perm, dom) >= thr) & pool).to(torch.float32)
     ov = torch.matmul(connected, sdr.to(torch.float32)[:, :, None])[:, :, 0]
     return ov.to(torch.int32)

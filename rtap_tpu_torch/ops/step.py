@@ -23,15 +23,36 @@ from rtap_tpu_torch.ops.sp import sp_step
 from rtap_tpu_torch.ops.tm import tm_step
 
 
+def step_stages(cfg: ModelConfig, learn: bool):
+    """The fused step as its named stages, in order: each maps (state, x)
+    -> (state, x'), from x = (values [G, n_fields] f32, ts_unix [G]) through
+    the SDR and the active columns to the raw score f32 [G].
+    :func:`_step_impl` runs them all; measurement scripts time or stop at
+    one of them."""
+
+    def bind_encode(state, x):
+        values, ts_unix = x
+        enc_offset, enc_bound = bind_offsets(values, state["enc_offset"], state["enc_bound"])
+        state = {**state, "enc_offset": enc_offset, "enc_bound": enc_bound}
+        return state, encode(cfg, values, ts_unix, enc_offset, state["enc_resolution"])
+
+    def sp(state, sdr):
+        return sp_step(state, sdr, cfg.sp, learn)
+
+    def tm(state, active):
+        return tm_step(state, active, cfg.tm, learn)
+
+    return (("bind_encode", bind_encode), ("sp", sp), ("tm", tm))
+
+
 def _step_impl(state: dict, values: torch.Tensor, ts_unix: torch.Tensor,
                cfg: ModelConfig, learn: bool):
     """One fused record step for G streams -> (new_state, raw f32 [G]).
     `values` is [G, n_fields] f32 (NaN = missing sample), `ts_unix` [G]."""
-    enc_offset, enc_bound = bind_offsets(values, state["enc_offset"], state["enc_bound"])
-    state = {**state, "enc_offset": enc_offset, "enc_bound": enc_bound}
-    sdr = encode(cfg, values, ts_unix, enc_offset, state["enc_resolution"])
-    state, active = sp_step(state, sdr, cfg.sp, learn)
-    return tm_step(state, active, cfg.tm, learn)
+    x = (values, ts_unix)
+    for _, stage in step_stages(cfg, learn):
+        state, x = stage(state, x)
+    return state, x
 
 
 def _tick(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelConfig,

@@ -22,7 +22,7 @@ import torch
 
 from rtap_tpu_torch.config import TMConfig
 from rtap_tpu_torch.models.perm import tm_domain
-from rtap_tpu_torch.ops.tm_learn import LearnConsts, learn_meta, presyn_active_packed, tm_learn
+from rtap_tpu_torch.ops.tm_learn import LearnPass, learn_pass, presyn_active_packed, tm_learn
 
 
 def _compact_ids(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -162,22 +162,18 @@ def _decide(state: dict, active_cols: torch.Tensor, cfg: TMConfig) -> dict:
                 acol_ids=acol_ids, acol_masks=acol_masks, a_cols=a_cols)
 
 
-def learn_pass_inputs(state: dict, active_cols: torch.Tensor, cfg: TMConfig):
-    """The arguments :func:`tm_step` hands the learning-pass kernel on a
-    learning tick -> (args, consts, K, N) for ``tm_learn_kernel(*args,
-    consts, K, N)``; the pools in `args` are views of the state's. For
-    measurement scripts that hold the kernel against its plain version on
-    real states."""
-    G, C, K, S, M = state["presyn"].shape
-    d = _decide(state, active_cols, cfg)
-    pcol_ids, pcol_masks, _ = _pack_active(state["prev_active"], cfg.col_cap)
-    meta, *_ = learn_meta(cfg, state["seg_pot"], state["matching_seg"], d["learn_mask"],
-                          d["alloc"], active_cols, d["have_winners"])
-    n_seg = C * K * S
-    args = (state["presyn"].view(G, n_seg, M), state["syn_perm"].view(G, n_seg, M), meta,
-            pcol_ids, pcol_masks, _winner_id_list(state["prev_winner"], cfg.col_cap),
-            d["acol_ids"], d["acol_masks"])
-    return args, LearnConsts.from_config(cfg, tm_domain(cfg)), K, C * K
+def learn_pass_inputs(state: dict, active_cols: torch.Tensor, cfg: TMConfig,
+                      d: dict | None = None) -> LearnPass:
+    """The learning pass that :func:`tm_step` runs on a learning tick of
+    `state` (`d`: this tick's :func:`_decide`, computed when not given)."""
+    if d is None:
+        d = _decide(state, active_cols, cfg)
+    pcol_ids, pcol_masks, p_cols = _pack_active(state["prev_active"], cfg.col_cap)
+    return learn_pass(
+        cfg, tm_domain(cfg), state["presyn"], state["syn_perm"], state["seg_pot"],
+        state["matching_seg"], d["learn_mask"], d["alloc"], active_cols, d["have_winners"],
+        pcol_ids, pcol_masks, p_cols, _winner_id_list(state["prev_winner"], cfg.col_cap),
+        d["acol_ids"], d["acol_masks"])
 
 
 def tm_step(state: dict, active_cols: torch.Tensor, cfg: TMConfig, learn: bool = True):
@@ -199,12 +195,9 @@ def tm_step(state: dict, active_cols: torch.Tensor, cfg: TMConfig, learn: bool =
     acol_ids, acol_masks, a_cols = d["acol_ids"], d["acol_masks"], d["a_cols"]
 
     if learn:
-        pcol_ids, pcol_masks, p_cols = _pack_active(state["prev_active"], Ac)
-        winner_ids = _winner_id_list(state["prev_winner"], Ac)
-        presyn, syn_perm, seg_last, conn_count, pot_count, overflow = tm_learn(
-            cfg, dom, presyn, syn_perm, seg_last, state["seg_pot"], state["matching_seg"],
-            d["learn_mask"], d["alloc"], active_cols, d["have_winners"], it,
-            pcol_ids, pcol_masks, p_cols, winner_ids, acol_ids, acol_masks)
+        lp = learn_pass_inputs(state, active_cols, cfg, d)
+        seg_last, conn_count, pot_count = tm_learn(lp, seg_last, it)
+        overflow = lp.overflow
     else:
         overflow = torch.zeros(G, dtype=torch.bool, device=presyn.device)
         conn_count, pot_count = _dendrite_counts(presyn, syn_perm, acol_ids, acol_masks,

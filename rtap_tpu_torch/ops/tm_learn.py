@@ -6,11 +6,13 @@ Pallas ``_mega_kernel``). Per segment row [M] of the [G, n_seg, M] pools
 (n_seg = C*K*S) the pass runs alloc-clear, reinforce, grow with eviction,
 punish, death, and the dendrite conn/pot counts for t+1.
 
-* :func:`tm_learn` — the harness, batched over G: builds the per-row meta
-  word from the decision tensors exactly as ``tm_learn_pallas`` does (first
-  col_cap active columns, then the first learn_cap learning segments in
-  ascending (c, k, s) order), runs the pass, then stamps seg_last, applies
-  empty-segment death and computes the overflow flag.
+* :func:`learn_pass` — the harness's prep, batched over G: builds the
+  per-row meta word from the decision tensors exactly as ``tm_learn_pallas``
+  does (first col_cap active columns, then the first learn_cap learning
+  segments in ascending (c, k, s) order) and the overflow flag, and
+  gathers the kernel's arguments into a :class:`LearnPass`.
+* :func:`tm_learn` — runs a :class:`LearnPass`, then stamps seg_last and
+  applies empty-segment death.
 * :func:`tm_learn_kernel` — the pass itself. On CUDA tensors it launches
   ``csrc/tm_learn.cu`` (and counts the launch in :data:`launches`) or
   raises; on CPU tensors it runs :func:`tm_learn_plain`. It never falls
@@ -283,12 +285,29 @@ def tm_learn_kernel(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
     return tuple(out)
 
 
-def learn_meta(cfg, seg_pot, matching_seg, learn_mask, alloc, active_cols, have_winners):
-    """The workspace truncation as per-row masks, batched over G (the
-    ``tm_learn_pallas`` prep). Returns (meta int32 [G, n_seg], alloc_seg,
-    learn_trunc bool [G, n_seg], ws_learn_count [G])."""
-    G, C, K, S = matching_seg.shape
+@dataclass
+class LearnPass:
+    """One learning tick's pass: the kernel's arguments and what the
+    epilogue needs. ``args`` is (presyn, perm, meta, pids, pmasks, wids,
+    aids, amasks) for ``tm_learn_kernel(*args, consts, K, N)``; presyn and
+    perm are [G, R, M] views of the state's pools."""
+
+    args: tuple
+    consts: LearnConsts
+    K: int
+    N: int
+    stamp: torch.Tensor  # bool [G, n_seg]: allocated + learned segments
+    overflow: torch.Tensor  # bool [G]: a capacity truncation happened
+
+
+def learn_pass(cfg, dom, presyn, syn_perm, seg_pot, matching_seg, learn_mask, alloc,
+               active_cols, have_winners, pcol_ids, pcol_masks, p_cols, winner_ids,
+               acol_ids, acol_masks) -> LearnPass:
+    """The ``tm_learn_pallas`` prep, batched over G: the workspace
+    truncation as per-row meta words. Pools are [G, C, K, S, M]."""
+    G, C, K, S, M = presyn.shape
     L, Ac = cfg.learn_cap, cfg.col_cap
+    n_seg = C * K * S
     dev = matching_seg.device
     alloc_col, bn_k, bn_s = alloc
     burst_new = alloc_col < C
@@ -313,33 +332,22 @@ def learn_meta(cfg, seg_pot, matching_seg, learn_mask, alloc, active_cols, have_
             | (grow_seg.to(torch.int32) << 2)
             | (punish_seg.to(torch.int32) << 3)
             | (n_grow.clamp(min=0).to(torch.int32) << 4))
-    return meta, alloc_seg, learn_trunc, ws_learn.sum(-1)
-
-
-def tm_learn(cfg, dom, presyn, syn_perm, seg_last, seg_pot, matching_seg, learn_mask, alloc,
-             active_cols, have_winners, it, pcol_ids, pcol_masks, p_cols, winner_ids,
-             acol_ids, acol_masks):
-    """The whole TM learning pass for G streams (the ``tm_learn_pallas``
-    counterpart). Pools are [G, C, K, S, M] and are updated in place.
-    Returns (presyn, syn_perm, seg_last' i32 [G, C, K, S], conn, pot uint8
-    [G, C, K, S], overflow bool [G])."""
-    G, C, K, S, M = presyn.shape
-    n_seg = C * K * S
-    meta, alloc_seg, learn_trunc, n_ws = learn_meta(
-        cfg, seg_pot, matching_seg, learn_mask, alloc, active_cols, have_winners)
-    nsyn, conn, pot = tm_learn_kernel(
-        presyn.view(G, n_seg, M), syn_perm.view(G, n_seg, M), meta,
-        pcol_ids, pcol_masks, winner_ids, acol_ids, acol_masks,
-        LearnConsts.from_config(cfg, dom), K, C * K)
-
-    # [C, K, S]-scale epilogue: stamp alloc + learned segments, then
-    # empty-segment death after the sweep
-    sl = seg_last.reshape(G, n_seg)
-    sl = torch.where(alloc_seg | learn_trunc, it[:, None], sl)
-    sl = torch.where((sl >= 0) & (nsyn == 0), -1, sl)
     # capacity overflow: truncated active set, truncated prev-active
     # packing, or more than learn_cap learners
-    overflow = (active_cols.sum(-1) > cfg.col_cap) | (p_cols > cfg.col_cap) | (n_ws > cfg.learn_cap)
-    seg_shape = (G, C, K, S)
-    return (presyn, syn_perm, sl.reshape(seg_shape), conn.reshape(seg_shape),
-            pot.reshape(seg_shape), overflow)
+    overflow = (active_cols.sum(-1) > Ac) | (p_cols > Ac) | (ws_learn.sum(-1) > L)
+    args = (presyn.view(G, n_seg, M), syn_perm.view(G, n_seg, M), meta,
+            pcol_ids, pcol_masks, winner_ids, acol_ids, acol_masks)
+    return LearnPass(args, LearnConsts.from_config(cfg, dom), K, C * K,
+                     alloc_seg | learn_trunc, overflow)
+
+
+def tm_learn(lp: LearnPass, seg_last: torch.Tensor, it: torch.Tensor):
+    """The whole TM learning pass for G streams (the ``tm_learn_pallas``
+    counterpart): the pass on the pools in place, then the [C, K, S]-scale
+    epilogue. Returns (seg_last' i32, conn, pot uint8), each [G, C, K, S]."""
+    nsyn, conn, pot = tm_learn_kernel(*lp.args, lp.consts, lp.K, lp.N)
+    # stamp alloc + learned segments, then empty-segment death after the sweep
+    G = seg_last.shape[0]
+    sl = torch.where(lp.stamp, it[:, None], seg_last.reshape(G, -1))
+    sl = torch.where((sl >= 0) & (nsyn == 0), -1, sl)
+    return sl.reshape(seg_last.shape), conn.reshape(seg_last.shape), pot.reshape(seg_last.shape)

@@ -34,33 +34,12 @@ import torch
 from rtap_tpu_torch.config import cluster_preset
 from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
 from rtap_tpu_torch.models.state import init_state
-from rtap_tpu_torch.ops.encoders import bind_offsets, encode
-from rtap_tpu_torch.ops.sp import sp_step
-from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
-from rtap_tpu_torch.ops.tm import tm_step
+from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device, step_stages
 from rtap_tpu_torch.service.likelihood_batch import BatchAnomalyLikelihood
 
 
 def _emit(part: str, **kw) -> None:
     print(json.dumps({"part": part, **kw}), flush=True)
-
-
-def _tick_stages(cfg, st, values, ts):
-    """One learning tick as (stage name, fn) steps over a mutable holder."""
-    box = {"st": st}
-
-    def enc():
-        off, bound = bind_offsets(values, box["st"]["enc_offset"], box["st"]["enc_bound"])
-        box["st"] = {**box["st"], "enc_offset": off, "enc_bound": bound}
-        box["sdr"] = encode(cfg, values, ts, off, box["st"]["enc_resolution"])
-
-    def sp():
-        box["st"], box["active"] = sp_step(box["st"], box["sdr"], cfg.sp, True)
-
-    def tm():
-        box["st"], box["raw"] = tm_step(box["st"], box["active"], cfg.tm, True)
-
-    return box, (("bind_encode", enc), ("sp", sp), ("tm", tm))
 
 
 def main(argv=None) -> int:
@@ -88,28 +67,28 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # 1. stage times: CUDA events on the stream + host enqueue times
-    names = ("bind_encode", "sp", "tm")
+    stages = step_stages(cfg, True)
+    names = [n for n, _ in stages]
     dev_ms = {n: [] for n in names}
     host_ms = {n: [] for n in names}
     tick_ms = []
     raws = []
     for t in range(W, W + R):
-        box, stages = _tick_stages(cfg, st, vals[t], tss[t])
+        x = (vals[t], tss[t])
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         torch.cuda.synchronize()
         h_start = time.perf_counter()
         evs[0].record()
         for i, (name, fn) in enumerate(stages):
             h0 = time.perf_counter()
-            fn()
+            st, x = fn(st, x)
             host_ms[name].append((time.perf_counter() - h0) * 1e3)
             evs[i + 1].record()
         torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - h_start) * 1e3)
         for i, name in enumerate(names):
             dev_ms[name].append(evs[i].elapsed_time(evs[i + 1]))
-        st = box["st"]
-        raws.append(box["raw"].cpu().numpy())
+        raws.append(x.cpu().numpy())
     _emit("stages", streams=G, warm_ticks=W, ticks=R, card=smi,
           tick_ms_median=float(np.median(tick_ms)),
           stage_event_ms_median={n: float(np.median(v)) for n, v in dev_ms.items()},
@@ -129,11 +108,11 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     t = W + R
-    box, stages = _tick_stages(cfg, st, vals[t], tss[t])
+    x = (vals[t], tss[t])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _, fn in stages:
-            fn()
+            st, x = fn(st, x)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:

@@ -63,6 +63,9 @@ class StreamGroup:
             raise NotImplementedError(
                 "the SDR classifier is not ported yet (ROADMAP.md, port queue A)")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the dense SP overlap counts through an f32 product (ops/sp.py)
+            torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.stream_ids = list(stream_ids)
         self.G = len(self.stream_ids)

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the TM learning pass.
 
-The port's learning pass (ops/tm_learn.tm_learn, which on CPU tensors runs
-tm_learn_plain) against the JAX package's Pallas harness tm_learn_pallas in
+The port's learning pass (ops/tm_learn.learn_pass + tm_learn, which on CPU
+tensors runs tm_learn_plain) against the JAX package's Pallas harness tm_learn_pallas in
 interpret mode, on random pools with empty slots, the column-0 sentinel
 case and K = 32 (negative int32) masks, in the f32, u16 and u8 domains.
 All six outputs are compared bit for bit; the port runs the three streams
@@ -23,7 +23,7 @@ from rtap_tpu.ops.pallas_tm import tm_learn_pallas
 from rtap_tpu_torch.config import TMConfig
 from rtap_tpu_torch.models.perm import tm_domain
 from rtap_tpu_torch.ops.tm import _pack_active, _winner_id_list
-from rtap_tpu_torch.ops.tm_learn import LearnConsts, tm_learn, tm_learn_kernel
+from rtap_tpu_torch.ops.tm_learn import LearnConsts, learn_pass, tm_learn, tm_learn_kernel
 
 # xdist workers share the host's cores with each other and with JAX: one
 # intra-op thread per worker keeps torch's OpenMP pool from oversubscribing them
@@ -111,10 +111,13 @@ def _run_port_learn(cfg, cases):
     pids, pmasks, p_cols = _pack_active(t["prev_active"], Ac)
     aids, amasks, _ = _pack_active(t["cur_active"], Ac)
     alloc = tuple(t[k].to(torch.int64) for k in ("alloc_col", "bn_k", "bn_s"))
-    return tm_learn(
-        cfg, tm_domain(cfg), t["presyn"], t["perm"], t["seg_last"], t["seg_pot"],
-        t["matching"], t["learn_mask"], alloc, t["active"], t["have_winners"], t["it"],
-        pids, pmasks, p_cols, _winner_id_list(t["winner"], Ac), aids, amasks)
+    lp = learn_pass(
+        cfg, tm_domain(cfg), t["presyn"], t["perm"], t["seg_pot"], t["matching"],
+        t["learn_mask"], alloc, t["active"], t["have_winners"], pids, pmasks, p_cols,
+        _winner_id_list(t["winner"], Ac), aids, amasks)
+    seg_last, conn, pot = tm_learn(lp, t["seg_last"], t["it"])
+    # the pass updates the pools in place
+    return t["presyn"], t["perm"], seg_last, conn, pot, lp.overflow
 
 
 @pytest.mark.parametrize("perm_bits", [0, 16, 8])
