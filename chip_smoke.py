@@ -10,7 +10,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernel vs plain: the TM learning-pass kernel against its plain PyTorch
    version on states that went through a few hundred real learning ticks
    (cluster preset, G = 64, u16 and f32 domains; NAB preset geometry,
-   G = 1, W = 1280), bit for bit, with CUDA-event times and the byte bound.
+   G = 1, W = 1280), bit for bit, with CUDA-event times and the byte bounds
+   (``ops/tm_learn.pass_bytes``: what these inputs need, and every row in
+   full); then the same on a dense random state at the main path's
+   per-stream shape (n_seg = 4096, M = 12, int16/u16, G = --dense-streams).
 4. the slice: ``replay_streams`` on cuda, cluster preset, G streams in one
    group, T ticks in chunks of 64 with learning, synthetic cluster data from
    --seed. The kernel's launch count must equal the learning ticks, raw must
@@ -47,27 +50,21 @@ def emit(phase: str, **kw) -> None:
 
 def cuda_ms(fn, reps: int, before=None) -> float:
     """Median CUDA-event time of fn() over `reps` runs; `before()` runs
-    between them, outside the timed window."""
+    between them, outside the timed window. A 1 ms spin kernel ahead of
+    the window keeps the stream busy while the host enqueues fn()'s work,
+    so the window holds device time, not the wrapper's host time."""
     times = []
     for _ in range(reps):
         if before is not None:
             before()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
-
-
-def pass_bytes(args) -> int:
-    """Bytes the pass must move: every input read once, the pools written
-    once more, and three uint8 counts per row written."""
-    presyn, perm = args[0], args[1]
-    read = sum(t.numel() * t.element_size() for t in args)
-    written = presyn.numel() * presyn.element_size() + perm.numel() * perm.element_size()
-    return read + written + 3 * presyn.shape[0] * presyn.shape[1]
 
 
 def pass_ops(args, Ac: int, N: int) -> int:
@@ -81,41 +78,12 @@ def pass_ops(args, Ac: int, N: int) -> int:
     return G * R * M * 2 * Ac + int((grow_rows * valid_winners).sum()) * M
 
 
-def cluster_streams(G: int, T: int, seed: int, **kw):
-    from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
-
-    scfg = SyntheticStreamConfig(length=T, cadence_s=1.0, noise_phi=0.97, noise_scale=0.5, **kw)
-    return generate_cluster((G + 2) // 3, cfg=scfg, seed=seed)[:G]
-
-
-def next_learn_pass(cfg, st, values, ts):
-    """The learning pass that the main path's step would run on one more
-    learning tick of state `st` ([G, ...]) on record (values [G, 1], ts
-    [G]): the step's own stages up to the TM stage, then the TM stage's
-    own learning-pass prep."""
-    from rtap_tpu_torch.ops.step import step_stages
-    from rtap_tpu_torch.ops.tm import learn_pass_inputs
-
-    x = (values, ts)
-    for name, stage in step_stages(cfg, True):
-        if name == "tm":
-            return learn_pass_inputs(st, x, cfg.tm)
-        st, x = stage(st, x)
-    raise AssertionError("the step has no TM stage")
-
-
 def learned_state(cfg, G: int, ticks: int, seed: int):
     """The next tick's learning pass for a [G, ...] state after `ticks`
     real learning ticks on synthetic cluster data."""
-    from rtap_tpu_torch.models.state import init_state
-    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
+    from rtap_tpu_torch.occupancy import learned_passes
 
-    streams = cluster_streams(G, ticks + 1, seed, n_anomalies=0)
-    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).cuda()
-    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).cuda()
-    st = replicate_state_device(init_state(cfg, seed), G, "cuda")
-    st, _ = chunk_step(st, vals[:ticks], ts[:ticks], cfg)
-    return next_learn_pass(cfg, st, vals[ticks], ts[ticks])
+    return next(learned_passes(cfg, G, [ticks], seed, "cuda"))[1]
 
 
 def compare_pass(name, lp, kernel_reps=20, plain_reps=3) -> dict:
@@ -145,18 +113,85 @@ def compare_pass(name, lp, kernel_reps=20, plain_reps=3) -> dict:
                         kernel_reps, restore(k_pools))
     plain_ms = cuda_ms(lambda: tl.tm_learn_plain(*p_pools, *args[2:], cs, K, N),
                        plain_reps, restore(p_pools))
-    nbytes = pass_bytes(args)
+    nbytes, nbytes_full = tl.pass_bytes(args, *p_pools)
+    occupancy = tl.pass_occupancy(args, *p_pools)
     ops = pass_ops(args, args[3].shape[1], N)
     byte_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    full_ms = nbytes_full / HBM_BYTES_PER_S * 1e3
     G, R, M = args[0].shape
     return dict(
         shape=name, G=G, n_seg=R, M=M, K=K, W=args[5].shape[1], Ac=args[3].shape[1],
         presyn_dtype=str(args[0].dtype), perm_dtype=str(args[1].dtype),
         equal=True, max_abs_err=max(errs.values()), kernel_ms=kernel_ms, plain_ms=plain_ms,
-        bytes=nbytes, ops=ops, bound_ms=max(byte_ms, ops_ms),
+        bytes=nbytes, bytes_full=nbytes_full, ops=ops, bound_ms=max(byte_ms, ops_ms),
         bound_by="bytes" if byte_ms >= ops_ms else "operations",
-        grow_rows=int((((args[2] >> 2) & 1) > 0).sum()),
+        bound_full_ms=max(full_ms, ops_ms),
+        grow_rows=int((((args[2] >> 2) & 1) > 0).sum()), **occupancy,
         kernel_launches_in_compare=tl.launches - before)
+
+
+def dense_pass(cfg, G: int, seed: int):
+    """A learning pass at the main path's per-stream shape on random,
+    densely filled pools, made on the card from `seed`: about 65% of slots
+    hold a synapse (some at permanence 0, which death kills), and each row
+    carries each of the learn/alloc/grow/punish flags with probability
+    0.2/0.05/0.15/0.1, n_grow in [0, M + 2]. The state a long-lived
+    deployment's pools approach, where most rows need their perm."""
+    from types import SimpleNamespace
+
+    from rtap_tpu_torch.models.perm import tm_domain
+    from rtap_tpu_torch.ops.tm_learn import LearnConsts
+
+    tm = cfg.tm
+    C, K, S, M, Ac = cfg.sp.columns, tm.cells_per_column, tm.max_segments_per_cell, \
+        tm.max_synapses_per_segment, tm.col_cap
+    N, R, W = C * K, C * K * S, Ac * K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    presyn = randint(0, N, G, R, M)
+    presyn[rand(G, R, M) < 0.35] = -1
+    perm = randint(0, 65536, G, R, M)
+    perm[rand(G, R, M) < 0.2] = 32767  # ties for the eviction rank
+    perm = torch.where(presyn >= 0, perm, 0)
+    flags = (rand(G, R, 4) < torch.tensor([0.2, 0.05, 0.15, 0.1], device=dev)).to(torch.int32)
+    n_grow = randint(-2, M + 3, G, R).clamp(min=0)
+    meta = (flags * torch.tensor([1, 2, 4, 8], device=dev, dtype=torch.int32)).sum(-1) | (n_grow << 4)
+
+    def packed():  # Ac ascending column ids (fills C), K-bit masks (fills 0)
+        n = randint(1, Ac + 1, G, 1)
+        ids = rand(G, C).argsort(1)[:, :Ac]
+        keep = torch.arange(Ac, device=dev) < n
+        ids = torch.where(keep, ids, C).sort(1).values
+        masks = torch.where(ids < C, randint(1, 1 << K, G, Ac), 0)
+        return ids, masks
+
+    pids, pmasks = packed()
+    aids, amasks = packed()
+    n_w = randint(0, W + 1, G, 1)
+    wids = rand(G, N).argsort(1)[:, :W]
+    wids = torch.where(torch.arange(W, device=dev) < n_w, wids, N).sort(1).values
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    args = (presyn.to(torch.int16), perm.to(torch.int32).to(torch.uint16), i32(meta),
+            i32(pids), i32(pmasks), i32(wids), i32(aids), i32(amasks))
+    return SimpleNamespace(args=args, consts=LearnConsts.from_config(tm, tm_domain(tm)), K=K, N=N)
+
+
+def phase_dense(G: int, seed: int, card) -> dict:
+    from rtap_tpu_torch.config import cluster_preset
+
+    t0 = time.perf_counter()
+    row = compare_pass("cluster_u16_dense", dense_pass(cluster_preset(), G, seed),
+                       kernel_reps=10, plain_reps=2)
+    row.update(setup_s=time.perf_counter() - t0, card=card)
+    emit("kernel_vs_plain", **row)
+    return row
 
 
 def phase_compare(label, cfg, G, warm_ticks, seed, card) -> dict:
@@ -173,6 +208,7 @@ def phase_slice(G: int, T: int, seed: int, card):
     import rtap_tpu_torch.ops.tm_learn as tl
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.models.state import state_nbytes
+    from rtap_tpu_torch.occupancy import cluster_streams, next_learn_pass
     from rtap_tpu_torch.service.replay import replay_streams
 
     cfg = cluster_preset()
@@ -214,6 +250,7 @@ def phase_card_vs_cpu(seed: int, G: int = 8, T: int = 64) -> None:
     log-likelihood and every state leaf bit-equal."""
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.occupancy import cluster_streams
     from rtap_tpu_torch.service.registry import StreamGroup
 
     small = cluster_streams(G, T, seed + 1, n_anomalies=0)
@@ -240,6 +277,8 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=128)
     ap.add_argument("--warm-ticks", type=int, default=300,
                     help="learning ticks before the kernel-vs-plain comparisons")
+    ap.add_argument("--dense-streams", type=int, default=2048,
+                    help="streams of the dense random kernel-vs-plain row")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -267,13 +306,18 @@ def main() -> int:
     lib, out, secs = _build.build("tm_learn", force=True)
     emit("build", kernel="tm_learn", seconds=secs,
          lib=str(lib.relative_to(_build.PKG_DIR.parent)),
-         ptxas=[ln for ln in out.splitlines() if "ptxas" in ln][-6:])
+         instantiations=sum("Compiling entry function" in ln for ln in out.splitlines()),
+         # ptxas -v per instantiation, deduplicated: registers, shared memory, stack; spills
+         ptxas=sorted({ln.split("Used", 1)[1].strip() for ln in out.splitlines() if "Used" in ln}
+                      | {ln.strip() for ln in out.splitlines()
+                         if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln}))
 
     # 3. kernel vs plain on learned states
     cmp_rows = [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
                 for label, cfg, G in (("cluster_u16", cluster_preset(), 64),
                                       ("cluster_f32", cluster_preset(perm_bits=0), 64),
                                       ("nab", nab_preset(), 1))]
+    cmp_rows.append(phase_dense(args.dense_streams, args.seed, smi))
     # 4. the slice, then the kernel at the main path's own shape
     launches, main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
     # 5. card vs CPU
@@ -285,6 +329,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in cmp_rows + [main_row]),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "bound_full_ms": main_row["bound_full_ms"],
         "library_ms": None,
     }
     emit("done", seconds=time.perf_counter() - t_start)

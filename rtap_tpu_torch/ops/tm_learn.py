@@ -236,6 +236,62 @@ def tm_learn_plain(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
     return tuple(out)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """`t` as signed integers of its width, so that != compares bits (f32
+    NaN and -0.0 included) and uint16 compares at all."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _pass_rows(args, presyn_after, perm_after):
+    """Per row [G, R]: holds a synapse; needs its perm (a synapse or a
+    learn/alloc/grow/punish bit); changed by the pass (bits compared)."""
+    presyn, perm, meta = args[0], args[1], args[2]
+    has_syn = (presyn >= 0).any(-1)
+    needs_perm = has_syn | ((meta & 15) != 0)
+    changed = ((_bits(presyn_after) != _bits(presyn)).any(-1)
+               | (_bits(perm_after) != _bits(perm)).any(-1))
+    return has_syn, needs_perm, changed
+
+
+def pass_bytes(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> tuple[int, int]:
+    """Bytes a pass must move on these inputs -> (data-dependent, full-row).
+
+    `args` are the pass's arguments before it ran, (presyn, perm, meta,
+    pids, pmasks, wids, aids, amasks); `presyn_after`/`perm_after` the pools
+    after it. Data-dependent: every presyn and meta byte read; a row's perm
+    read only if the row holds a synapse or has a learn/alloc/grow/punish
+    bit; both pools written only for rows the pass changed; the three uint8
+    counts written; the lists and winners read once. Full-row: every input
+    read once, both pools written whole, the counts written."""
+    presyn, perm, meta = args[0], args[1], args[2]
+    G, R, M = presyn.shape
+    ps, vs = presyn.element_size(), perm.element_size()
+    counts = 3 * G * R
+    lists = sum(t.numel() * t.element_size() for t in args[3:])
+    full = (sum(t.numel() * t.element_size() for t in args)
+            + presyn.numel() * ps + perm.numel() * vs + counts)
+    _, needs_perm, changed = _pass_rows(args, presyn_after, perm_after)
+    data = (presyn.numel() * ps + meta.numel() * meta.element_size() + lists + counts
+            + int(needs_perm.sum()) * M * vs + int(changed.sum()) * M * (ps + vs))
+    return data, full
+
+
+def pass_occupancy(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> dict:
+    """What share of a pass's rows and slots the data fills and touches:
+    rows changed, slots and rows holding a synapse, rows needing their
+    perm, and the growing rows (grow bit, n_grow > 0) per stream."""
+    presyn, meta = args[0], args[2]
+    has_syn, needs_perm, changed = _pass_rows(args, presyn_after, perm_after)
+    growing = ((((meta >> 2) & 1) > 0) & ((meta >> 4) > 0)).sum(1)
+    return dict(rows_changed=changed.double().mean().item(),
+                slots_with_synapse=(presyn >= 0).double().mean().item(),
+                rows_with_synapse=has_syn.double().mean().item(),
+                rows_needing_perm=needs_perm.double().mean().item(),
+                growing_rows_per_stream=[int(growing.min()), int(growing.max())])
+
+
 _PRESYN_KIND = {torch.int16: 16, torch.int32: 32}
 _PERM_KIND = {torch.float32: 0, torch.uint16: 16, torch.uint8: 8}
 

@@ -29,7 +29,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_pass_inputs(rng, G, R, M, K, C, Ac, W, perm_dtype, col0):
+FLAG_P = (0.2, 0.05, 0.15, 0.1)  # learn, alloc, grow, punish
+
+
+def _random_pass_inputs(rng, G, R, M, K, C, Ac, W, perm_dtype, col0, flag_p=FLAG_P,
+                        presyn_dtype=torch.int16, edit=None):
+    """Random pass inputs; `edit(rng, presyn, perm, meta)` may rework the
+    numpy pools and meta in place before they become tensors."""
     N = C * K
     presyn = rng.integers(0, N, (G, R, M))
     presyn[rng.random((G, R, M)) < 0.35] = -1
@@ -42,9 +48,11 @@ def _random_pass_inputs(rng, G, R, M, K, C, Ac, W, perm_dtype, col0):
         perm = rng.integers(0, one + 1, (G, R, M))
         perm[rng.random(perm.shape) < 0.2] = one // 2
     perm = np.where(presyn >= 0, perm, 0)
-    flags = rng.random((G, R, 4)) < np.array([0.2, 0.05, 0.15, 0.1])
+    flags = rng.random((G, R, 4)) < np.array(flag_p)
     n_grow = rng.integers(-2, M + 3, (G, R)).clip(min=0)
     meta = (flags * np.array([1, 2, 4, 8])).sum(-1) | (n_grow << 4)
+    if edit is not None:
+        edit(rng, presyn, perm, meta)
 
     def packed():
         ids = np.full((G, Ac), C)
@@ -68,20 +76,65 @@ def _random_pass_inputs(rng, G, R, M, K, C, Ac, W, perm_dtype, col0):
         w = np.sort(rng.choice(N, rng.integers(0, W + 1), replace=False))
         wids[g, : len(w)] = w
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(torch.int32)
-    return [torch.from_numpy(presyn).to(torch.int16),
+    return [torch.from_numpy(presyn).to(presyn_dtype),
             torch.from_numpy(np.asarray(perm)).to(perm_dtype),
             i32(meta), i32(pids), i32(pmasks), i32(wids), i32(aids), i32(amasks)], N
 
 
-@pytest.mark.parametrize("perm_dtype", [torch.float32, torch.uint16, torch.uint8])
-@pytest.mark.parametrize("K,M,Ac,col0", [(8, 12, 10, True), (32, 32, 4, True), (4, 6, 5, False)])
-def test_kernel_matches_plain(cuda, perm_dtype, K, M, Ac, col0):
+def _dead_flagless(rng, presyn, perm, meta):
+    """Half the rows carry no flag, and a third of all live synapses sit
+    at permanence 0: death must rewrite those rows though meta says nothing."""
+    meta[rng.random(meta.shape) < 0.5] = 0
+    perm[(presyn >= 0) & (rng.random(perm.shape) < 0.33)] = 0
+
+
+def _f32_clip(rng, presyn, perm, meta):
+    """Learning rows whose empty slots hold permanences outside [0, 1]: the
+    clip must rewrite them."""
+    meta[rng.random(meta.shape) < 0.5] |= 1
+    perm[...] = np.where(presyn < 0, rng.choice(np.float32([-0.5, 1.5, 3.0]), perm.shape), perm)
+
+
+# (perm dtype, K, M, Ac, col0) with G = 5 streams of R = 300 rows, C = 64,
+# W = Ac * K; then the shapes the kernel's separate paths need
+CASES = [pytest.param(dict(perm_dtype=p, K=K, M=M, Ac=Ac, col0=col0),
+                      id=f"{str(p)[6:]}-K{K}-M{M}-Ac{Ac}-col0{int(col0)}")
+         for p in (torch.float32, torch.uint16, torch.uint8)
+         for K, M, Ac, col0 in ((8, 12, 10, True), (32, 32, 4, True), (4, 6, 5, False))] + [
+    # a NAB-like winner list (W = 1280) with many growing rows, int32 presyn
+    pytest.param(dict(perm_dtype=torch.float32, K=32, M=32, Ac=40, col0=False, G=2, R=512,
+                      presyn_dtype=torch.int32, flag_p=(0.6, 0.05, 0.6, 0.1)), id="nab-like-W1280"),
+    # 10-byte rows and a ragged last tile: the tiles the block copies itself
+    pytest.param(dict(perm_dtype=torch.uint16, K=8, M=5, Ac=10, col0=True, R=301), id="rows10B-R301"),
+    # more streams than a grid's y extent holds, walked by persistent blocks
+    pytest.param(dict(perm_dtype=torch.uint8, K=4, M=4, Ac=3, col0=False, G=65543, R=8, C=8),
+                 id="G65543"),
+    pytest.param(dict(perm_dtype=torch.uint16, K=8, M=12, Ac=10, col0=False, edit=_dead_flagless),
+                 id="flagless-death"),
+    pytest.param(dict(perm_dtype=torch.float32, K=8, M=12, Ac=10, col0=False, edit=_f32_clip),
+                 id="f32-clip-empty"),
+    # winner lists in no order, fills (ids >= N) between valid ids
+    pytest.param(dict(perm_dtype=torch.uint16, K=8, M=12, Ac=10, col0=True, shuffle_wids=True,
+                      flag_p=(0.5, 0.05, 0.5, 0.1)), id="winners-unordered"),
+]
+
+
+def _case_inputs(case):
+    c = {"G": 5, "R": 300, "C": 64, **case}
+    rng = np.random.default_rng(c["K"] * c["M"] + c["Ac"])
+    extra = {k: c[k] for k in ("flag_p", "presyn_dtype", "edit") if k in c}
+    args, N = _random_pass_inputs(rng, c["G"], c["R"], c["M"], c["K"], c["C"], c["Ac"],
+                                  c["Ac"] * c["K"], c["perm_dtype"], c["col0"], **extra)
+    if c.get("shuffle_wids"):
+        args[5] = torch.from_numpy(rng.permuted(args[5].numpy(), axis=1))
+    return args, LearnConsts(*DOMAIN_CONSTS[c["perm_dtype"]]), c["K"], N
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_plain(cuda, case):
     import rtap_tpu_torch.ops.tm_learn as tl
 
-    rng = np.random.default_rng(K * M + Ac)
-    C, G, R = 64, 5, 300
-    args, N = _random_pass_inputs(rng, G, R, M, K, C, Ac, Ac * K, perm_dtype, col0)
-    cs = LearnConsts(*DOMAIN_CONSTS[perm_dtype])
+    args, cs, K, N = _case_inputs(case)
     dev_args = [a.to(cuda) for a in args]
     tl.reset_launches()
     got = tm_learn_kernel(*dev_args, cs, K, N)
