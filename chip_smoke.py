@@ -13,7 +13,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    G = 1, W = 1280), bit for bit, with CUDA-event times and the byte bounds
    (``ops/tm_learn.pass_bytes``: what these inputs need, and every row in
    full); then the same on a dense random state at the main path's
-   per-stream shape (n_seg = 4096, M = 12, int16/u16, G = --dense-streams).
+   per-stream shape (n_seg = 4096, M = 12, int16/u16, G = 2,048).
 4. the slice: ``replay_streams`` on cuda, cluster preset, G streams in one
    group, T ticks in chunks of 64 with learning, synthetic cluster data from
    --seed. The kernel's launch count must equal the learning ticks, raw must
@@ -42,6 +42,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM 32-bit non-tensor peak (NVIDIA data sheet)
 KERNEL_SOURCE = "rtap_tpu_torch/csrc/tm_learn.cu"
 KERNEL_REPLACES = "rtap_tpu/ops/pallas_tm.py:86"
+DENSE_STREAMS = 2048  # the dense row's G: the plain version finishes it in seconds
 
 
 def emit(phase: str, **kw) -> None:
@@ -50,7 +51,7 @@ def emit(phase: str, **kw) -> None:
 
 def cuda_ms(fn, reps: int, before=None) -> float:
     """Median CUDA-event time of fn() over `reps` runs; `before()` runs
-    between them, outside the timed window. A 1 ms spin kernel ahead of
+    between them, outside the timed window. A spin kernel ahead of
     the window keeps the stream busy while the host enqueues fn()'s work,
     so the window holds device time, not the wrapper's host time."""
     times = []
@@ -81,9 +82,16 @@ def pass_ops(args, Ac: int, N: int) -> int:
 def learned_state(cfg, G: int, ticks: int, seed: int):
     """The next tick's learning pass for a [G, ...] state after `ticks`
     real learning ticks on synthetic cluster data."""
-    from rtap_tpu_torch.occupancy import learned_passes
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+    from rtap_tpu_torch.models.state import init_state
+    from rtap_tpu_torch.ops.step import chunk_step, next_learn_pass, replicate_state_device
 
-    return next(learned_passes(cfg, G, [ticks], seed, "cuda"))[1]
+    streams = cluster_streams(G, ticks + 1, seed, n_anomalies=0)
+    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).cuda()
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).cuda()
+    st = replicate_state_device(init_state(cfg, seed), G, "cuda")
+    st, _ = chunk_step(st, vals[:ticks], ts[:ticks], cfg)
+    return next_learn_pass(cfg, st, vals[ticks], ts[ticks])
 
 
 def compare_pass(name, lp, kernel_reps=20, plain_reps=3) -> dict:
@@ -102,8 +110,8 @@ def compare_pass(name, lp, kernel_reps=20, plain_reps=3) -> dict:
     names = ("presyn", "perm", "nsyn", "conn", "pot")
     pairs = list(zip(names, [*k_pools, *got], [*p_pools, *want]))
     errs = {n: (a.to(torch.float64) - b.to(torch.float64)).abs().max().item() for n, a, b in pairs}
-    bad = [n for n, a, b in pairs if not torch.equal(a, b)]
-    if bad:  # the tolerance is bit-equality
+    bad = [n for n, a, b in pairs if not torch.equal(tl.as_bits(a), tl.as_bits(b))]
+    if bad:  # the tolerance is bit-equality (an f32 -0.0 is not +0.0)
         raise AssertionError(f"{name}: kernel and plain differ in {bad} (max abs error {errs})")
 
     def restore(pools):
@@ -208,7 +216,8 @@ def phase_slice(G: int, T: int, seed: int, card):
     import rtap_tpu_torch.ops.tm_learn as tl
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.models.state import state_nbytes
-    from rtap_tpu_torch.occupancy import cluster_streams, next_learn_pass
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+    from rtap_tpu_torch.ops.step import next_learn_pass
     from rtap_tpu_torch.service.replay import replay_streams
 
     cfg = cluster_preset()
@@ -250,7 +259,7 @@ def phase_card_vs_cpu(seed: int, G: int = 8, T: int = 64) -> None:
     log-likelihood and every state leaf bit-equal."""
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.models.state import state_to_numpy
-    from rtap_tpu_torch.occupancy import cluster_streams
+    from rtap_tpu_torch.data.synthetic import cluster_streams
     from rtap_tpu_torch.service.registry import StreamGroup
 
     small = cluster_streams(G, T, seed + 1, n_anomalies=0)
@@ -277,8 +286,6 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=128)
     ap.add_argument("--warm-ticks", type=int, default=300,
                     help="learning ticks before the kernel-vs-plain comparisons")
-    ap.add_argument("--dense-streams", type=int, default=2048,
-                    help="streams of the dense random kernel-vs-plain row")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -317,7 +324,7 @@ def main() -> int:
                 for label, cfg, G in (("cluster_u16", cluster_preset(), 64),
                                       ("cluster_f32", cluster_preset(perm_bits=0), 64),
                                       ("nab", nab_preset(), 1))]
-    cmp_rows.append(phase_dense(args.dense_streams, args.seed, smi))
+    cmp_rows.append(phase_dense(DENSE_STREAMS, args.seed, smi))
     # 4. the slice, then the kernel at the main path's own shape
     launches, main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
     # 5. card vs CPU

@@ -15,7 +15,7 @@ import sys
 
 def _cmd_replay(args: argparse.Namespace) -> int:
     from rtap_tpu_torch.config import cluster_preset, scaled_cluster_preset
-    from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
+    from rtap_tpu_torch.data.synthetic import cluster_streams
     from rtap_tpu_torch.service.replay import replay_streams
 
     min_len = 80  # the generator needs room for post-probation injections
@@ -25,10 +25,8 @@ def _cmd_replay(args: argparse.Namespace) -> int:
         return 2
     cfg = cluster_preset() if args.columns is None else scaled_cluster_preset(args.columns)
     cfg = cfg.with_learn_every(args.learn_every, burst=args.learn_burst)
-    scfg = SyntheticStreamConfig(length=args.length, cadence_s=1.0,
-                                 anomaly_magnitude=args.magnitude,
-                                 noise_phi=0.97, noise_scale=0.5)
-    streams = generate_cluster(args.nodes, cfg=scfg, seed=args.seed)
+    streams = cluster_streams(3 * args.nodes, args.length, args.seed,
+                              anomaly_magnitude=args.magnitude)
     res = replay_streams(streams, cfg, device=args.device, group_size=args.group_size,
                          chunk_ticks=args.chunk_ticks, threshold=args.threshold,
                          debounce=args.debounce, learn=not args.freeze)

@@ -12,7 +12,10 @@
 // (perm, slot)) when free slots run short and filling free slots ascending
 // with eligible winners ascending at p_init; punish (-pdec, floor 0) on
 // matching segments of non-active columns; death at perm <= 0; and the
-// dendrite nsyn/conn/pot counts for t+1.
+// dendrite nsyn/conn/pot counts for t+1. Its output equals the plain
+// version's (ops/tm_learn.tm_learn_plain) bit for bit, f32 signed zeros and
+// infinities included; f32 NaN permanences are outside that (the clip maps
+// NaN to 0, and NaN payloads differ between CPU and CUDA arithmetic).
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes, and which bytes depends on the data
 // (ops/tm_learn.pass_bytes counts both; chip_smoke.py reports both).
@@ -22,11 +25,11 @@
 //   cluster_preset at G = 32,768 (n_seg = 4096, M = 12).
 // * What these inputs need ("data-dependent"): every presyn and meta byte
 //   read (the dendrite counts come from presyn); a row's perm only if the
-//   row holds a synapse or has a learn/alloc/grow/punish bit; both pools
-//   written only where the pass changed the row; the counts written. On the
-//   replayed main-path state under 1% of rows hold a synapse or change:
-//   4.30 GB, a 1.28 ms bound (chip_smoke.py, NVIDIA H100 80GB HBM3 at
-//   700 W).
+//   row holds a synapse or has a learn/alloc/grow/punish bit; a row's
+//   presyn, and its perm, written only where the pass changed that pool;
+//   the counts written. On the replayed main-path state about 2.6% of rows
+//   hold a synapse or a flag and 0.6% change: 4.28 GB, a 1.28 ms bound
+//   (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).
 //
 // What the design does about that bound:
 // * Persistent blocks. The grid is (blocks per SM by occupancy) x (SMs).
@@ -291,6 +294,16 @@ __device__ __forceinline__ bool same_bits<float>(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b);
 }
 
+// Reinforce one slot of a learning row: clip(v + p_inc*act - p_dec*(exists
+// & ~act), 0, one), with the reference's 0/1 factors and its order of
+// operations. Each product is exact (so a contraction to fma rounds alike),
+// and adding the +0 products is not dropped: it turns an f32 -0.0 into
+// +0.0 as the reference does, which a select form would not.
+__device__ __forceinline__ float reinforce(float v, bool act, bool exists, const Consts& cs) {
+  const float x = v + cs.p_inc * (act ? 1.f : 0.f) - cs.p_dec * (exists && !act ? 1.f : 0.f);
+  return fminf(fmaxf(x, 0.f), cs.p_one);
+}
+
 // Is presynaptic cell p in a packed cell set, held as an N-bit bitmap? The
 // -1 sentinel is tested BEFORE any decoding: JAX floors -1 // K to column
 // -1, which matches nothing, while C would truncate -1 / K to column 0.
@@ -357,17 +370,11 @@ __device__ __forceinline__ int learn_row(const PresynT* sp, const PermT* vp, Pre
     bool p_changed = false, v_changed = false;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      // burst-new allocation clears the slot; reinforce. The reference
-      // writes clip(perm + p_inc*act - p_dec*(exists & ~act), 0, one) with
-      // 0/1 factors: each product is exact and adding or subtracting an
-      // exact 0 leaves perm as it is, so this select form gives its bits.
+      // burst-new allocation clears the slot; reinforce
       int p = alloc ? -1 : static_cast<int>(p0.e[e]);
       float v = alloc ? 0.f : static_cast<float>(v0.e[e]);
       const bool a = cell_in(prev, p, N);
-      if (learn) {
-        const float x = a ? v + cs.p_inc : (p >= 0 ? v - cs.p_dec : v);
-        v = fminf(fmaxf(x, 0.f), cs.p_one);
-      }
+      if (learn) v = reinforce(v, a, p >= 0, cs);
       // punish matching segments in non-active columns (pre-grow
       // membership); synapse death at perm <= 0 (perm stays); the counts
       if (do_punish && a) v = fmaxf(v - cs.pdec, cs.p_zero);
@@ -410,10 +417,7 @@ __device__ __forceinline__ void grow_row(const PresynT* sp, const PermT* vp, Pre
   int p = alloc ? -1 : static_cast<int>(p0);
   float v = alloc ? 0.f : static_cast<float>(v0);
   const bool a = in && cell_in(prev, p, N);
-  if (learn && in) {
-    const float x = a ? v + cs.p_inc : (p >= 0 ? v - cs.p_dec : v);
-    v = fminf(fmaxf(x, 0.f), cs.p_one);
-  }
+  if (learn && in) v = reinforce(v, a, p >= 0, cs);
   const int occupied = __popc(__ballot_sync(kFull, in && p >= 0));
 
   // eligible winners: valid, not already presynaptic on the pre-eviction
@@ -436,14 +440,15 @@ __device__ __forceinline__ void grow_row(const PresynT* sp, const PermT* vp, Pre
   const int n_new = min(cnt, n_grow);
 
   // evict the weakest occupied slots when free slots run short: stable
-  // ascending rank by (perm, slot) among the occupied slots
+  // ascending rank by (perm, slot), a free slot keyed +inf as the
+  // reference keys it (an occupied slot at perm +inf ties with it)
   const int short_by = n_new - (M - occupied);
   if (short_by > 0) {
+    const float key = p >= 0 ? v : INFINITY;
     int rank = 0;
     for (int j = 0; j < M; ++j) {
-      const int pj = __shfl_sync(kFull, p, j);
-      const float vj = __shfl_sync(kFull, v, j);
-      rank += pj >= 0 && (vj < v || (vj == v && j < lane));
+      const float kj = __shfl_sync(kFull, key, j);
+      rank += kj < key || (kj == key && j < lane);
     }
     if (in && p >= 0 && rank < short_by) {
       p = -1;

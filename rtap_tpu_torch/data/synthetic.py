@@ -254,3 +254,12 @@ def generate_cluster(
             out.append(generate_stream(f"node{i:05d}.{m}", scfg, seed=seed))
     return out
 
+
+def cluster_streams(n_streams: int, length: int, seed: int = 0, **kw) -> list[LabeledStream]:
+    """The replay's synthetic cluster data: `n_streams` streams of
+    :func:`generate_cluster` (nodes of cpu/mem/net, cut to `n_streams`) with
+    smooth AR(1) noise (noise_phi 0.97, noise_scale 0.5) at a 1 s cadence;
+    `kw` sets further :class:`SyntheticStreamConfig` fields."""
+    cfg = SyntheticStreamConfig(length=length, cadence_s=1.0, noise_phi=0.97, noise_scale=0.5,
+                                **kw)
+    return generate_cluster((n_streams + 2) // 3, cfg=cfg, seed=seed)[:n_streams]

@@ -1,15 +1,15 @@
 """How full the TM pools are after T learning ticks, and what share of a
 learning pass's rows needs its perm or changes.
 
-    python -m rtap_tpu_torch.occupancy [--streams G] [--ticks T ...] [--seed S] [--device D]
+    python -m rtap_tpu_torch.occupancy [--device cpu]
 
-A ``cluster_preset`` group of G streams learns synthetic cluster data
-(``chunk_step``, as the replay does); at each T it prepares the next
-learning tick's pass (the step's own stages, then the TM stage's own prep)
-and runs it on a copy of the pools. Prints one JSON line per T with
-``ops/tm_learn.pass_occupancy``: these are counts, the same on any device,
-and they set which bytes the pass must move (``pass_bytes``). Runs on
-cuda unless ``--device cpu``.
+A ``cluster_preset`` group of 12 streams learns the replay's synthetic
+cluster data (seed 0, ``chunk_step`` as the replay does); after T = 128,
+300 and 900 learning ticks it prepares the next learning tick's pass
+(``ops/step.next_learn_pass``) and runs it on a copy of the pools. Prints
+one JSON line per T with ``ops/tm_learn.pass_occupancy``: these are counts,
+the same on any device, and they set which bytes the pass must move
+(``pass_bytes``). Runs on cuda unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -21,66 +21,35 @@ import sys
 import numpy as np
 import torch
 
-
-def cluster_streams(G: int, T: int, seed: int, **kw):
-    """G synthetic cluster metric streams of T ticks (the smoke's data)."""
-    from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
-
-    scfg = SyntheticStreamConfig(length=T, cadence_s=1.0, noise_phi=0.97, noise_scale=0.5, **kw)
-    return generate_cluster((G + 2) // 3, cfg=scfg, seed=seed)[:G]
-
-
-def next_learn_pass(cfg, st, values, ts):
-    """The learning pass that the main path's step would run on one more
-    learning tick of state `st` ([G, ...]) on record (values [G, 1], ts
-    [G]): the step's own stages up to the TM stage, then the TM stage's
-    own learning-pass prep."""
-    from rtap_tpu_torch.ops.step import step_stages
-    from rtap_tpu_torch.ops.tm import learn_pass_inputs
-
-    x = (values, ts)
-    for name, stage in step_stages(cfg, True):
-        if name == "tm":
-            return learn_pass_inputs(st, x, cfg.tm)
-        st, x = stage(st, x)
-    raise AssertionError("the step has no TM stage")
-
-
-def learned_passes(cfg, G: int, ticks, seed: int, device):
-    """Yield (T, the next tick's learning pass) for each T in ascending
-    `ticks`, from one [G, ...] group learning synthetic cluster data."""
-    from rtap_tpu_torch.models.state import init_state
-    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
-
-    ticks = sorted(ticks)
-    streams = cluster_streams(G, ticks[-1] + 1, seed, n_anomalies=0)
-    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).to(device)
-    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).to(device)
-    st = replicate_state_device(init_state(cfg, seed), G, device)
-    done = 0
-    for T in ticks:
-        st, _ = chunk_step(st, vals[done:T], ts[done:T], cfg)
-        done = T
-        yield T, next_learn_pass(cfg, st, vals[T], ts[T])
+STREAMS = 12
+TICKS = (128, 300, 900)
+SEED = 0
 
 
 def main(argv=None) -> int:
     from rtap_tpu_torch import resolve_device
     from rtap_tpu_torch.config import cluster_preset
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+    from rtap_tpu_torch.models.state import init_state
+    from rtap_tpu_torch.ops.step import chunk_step, next_learn_pass, replicate_state_device
     from rtap_tpu_torch.ops.tm_learn import pass_occupancy, tm_learn_kernel
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--streams", type=int, default=12)
-    ap.add_argument("--ticks", type=int, nargs="+", default=[128, 300, 900])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None)
-    args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    ap.add_argument("--device", default=None, help="torch device (default cuda)")
+    dev = resolve_device(ap.parse_args(argv).device)
     cfg = cluster_preset()
-    for T, lp in learned_passes(cfg, args.streams, args.ticks, args.seed, dev):
+    streams = cluster_streams(STREAMS, TICKS[-1] + 1, SEED, n_anomalies=0)
+    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).to(dev)
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).to(dev)
+    st = replicate_state_device(init_state(cfg, SEED), STREAMS, dev)
+    done = 0
+    for T in TICKS:
+        st, _ = chunk_step(st, vals[done:T], ts[done:T], cfg)
+        done = T
+        lp = next_learn_pass(cfg, st, vals[T], ts[T])
         after = [a.clone() for a in lp.args[:2]]
         tm_learn_kernel(*after, *lp.args[2:], lp.consts, lp.K, lp.N)
-        print(json.dumps({"preset": "cluster_preset", "streams": args.streams, "learning_ticks": T,
+        print(json.dumps({"preset": "cluster_preset", "streams": STREAMS, "learning_ticks": T,
                           "device": str(dev), **pass_occupancy(lp.args, *after)}), flush=True)
     return 0
 

@@ -20,7 +20,7 @@ import torch
 from rtap_tpu_torch.config import ModelConfig
 from rtap_tpu_torch.ops.encoders import bind_offsets, encode
 from rtap_tpu_torch.ops.sp import sp_step
-from rtap_tpu_torch.ops.tm import tm_step
+from rtap_tpu_torch.ops.tm import learn_pass_inputs, tm_step
 
 
 def step_stages(cfg: ModelConfig, learn: bool):
@@ -43,6 +43,19 @@ def step_stages(cfg: ModelConfig, learn: bool):
         return tm_step(state, active, cfg.tm, learn)
 
     return (("bind_encode", bind_encode), ("sp", sp), ("tm", tm))
+
+
+def next_learn_pass(cfg: ModelConfig, state: dict, values: torch.Tensor,
+                    ts_unix: torch.Tensor):
+    """The TM learning pass (a ``LearnPass``) that the step would run on one
+    more learning tick of `state` on record (values [G, n_fields], ts_unix
+    [G]): the stages before the TM stage, then the TM stage's own prep."""
+    x = (values, ts_unix)
+    for name, stage in step_stages(cfg, True):
+        if name == "tm":
+            return learn_pass_inputs(state, x, cfg.tm)
+        state, x = stage(state, x)
+    raise AssertionError("the step has no TM stage")
 
 
 def _step_impl(state: dict, values: torch.Tensor, ts_unix: torch.Tensor,

@@ -236,7 +236,7 @@ def tm_learn_plain(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
     return tuple(out)
 
 
-def _bits(t: torch.Tensor) -> torch.Tensor:
+def as_bits(t: torch.Tensor) -> torch.Tensor:
     """`t` as signed integers of its width, so that != compares bits (f32
     NaN and -0.0 included) and uint16 compares at all."""
     if t.dtype == torch.float32:
@@ -246,13 +246,14 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 def _pass_rows(args, presyn_after, perm_after):
     """Per row [G, R]: holds a synapse; needs its perm (a synapse or a
-    learn/alloc/grow/punish bit); changed by the pass (bits compared)."""
+    learn/alloc/grow/punish bit); presyn changed; perm changed (bits
+    compared)."""
     presyn, perm, meta = args[0], args[1], args[2]
     has_syn = (presyn >= 0).any(-1)
     needs_perm = has_syn | ((meta & 15) != 0)
-    changed = ((_bits(presyn_after) != _bits(presyn)).any(-1)
-               | (_bits(perm_after) != _bits(perm)).any(-1))
-    return has_syn, needs_perm, changed
+    presyn_changed = (as_bits(presyn_after) != as_bits(presyn)).any(-1)
+    perm_changed = (as_bits(perm_after) != as_bits(perm)).any(-1)
+    return has_syn, needs_perm, presyn_changed, perm_changed
 
 
 def pass_bytes(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> tuple[int, int]:
@@ -262,9 +263,11 @@ def pass_bytes(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> tu
     pids, pmasks, wids, aids, amasks); `presyn_after`/`perm_after` the pools
     after it. Data-dependent: every presyn and meta byte read; a row's perm
     read only if the row holds a synapse or has a learn/alloc/grow/punish
-    bit; both pools written only for rows the pass changed; the three uint8
-    counts written; the lists and winners read once. Full-row: every input
-    read once, both pools written whole, the counts written."""
+    bit; a row's presyn written only if the pass changed it, and its perm
+    likewise, each pool on its own (death rewrites presyn alone, reinforce
+    perm alone); the three uint8 counts written; the lists and winners read
+    once. Full-row: every input read once, both pools written whole, the
+    counts written."""
     presyn, perm, meta = args[0], args[1], args[2]
     G, R, M = presyn.shape
     ps, vs = presyn.element_size(), perm.element_size()
@@ -272,20 +275,22 @@ def pass_bytes(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> tu
     lists = sum(t.numel() * t.element_size() for t in args[3:])
     full = (sum(t.numel() * t.element_size() for t in args)
             + presyn.numel() * ps + perm.numel() * vs + counts)
-    _, needs_perm, changed = _pass_rows(args, presyn_after, perm_after)
+    _, needs_perm, presyn_changed, perm_changed = _pass_rows(args, presyn_after, perm_after)
     data = (presyn.numel() * ps + meta.numel() * meta.element_size() + lists + counts
-            + int(needs_perm.sum()) * M * vs + int(changed.sum()) * M * (ps + vs))
+            + int(needs_perm.sum()) * M * vs
+            + int(presyn_changed.sum()) * M * ps + int(perm_changed.sum()) * M * vs)
     return data, full
 
 
 def pass_occupancy(args, presyn_after: torch.Tensor, perm_after: torch.Tensor) -> dict:
     """What share of a pass's rows and slots the data fills and touches:
-    rows changed, slots and rows holding a synapse, rows needing their
-    perm, and the growing rows (grow bit, n_grow > 0) per stream."""
+    rows changed (either pool), slots and rows holding a synapse, rows
+    needing their perm, and the growing rows (grow bit, n_grow > 0) per
+    stream."""
     presyn, meta = args[0], args[2]
-    has_syn, needs_perm, changed = _pass_rows(args, presyn_after, perm_after)
+    has_syn, needs_perm, presyn_changed, perm_changed = _pass_rows(args, presyn_after, perm_after)
     growing = ((((meta >> 2) & 1) > 0) & ((meta >> 4) > 0)).sum(1)
-    return dict(rows_changed=changed.double().mean().item(),
+    return dict(rows_changed=(presyn_changed | perm_changed).double().mean().item(),
                 slots_with_synapse=(presyn >= 0).double().mean().item(),
                 rows_with_synapse=has_syn.double().mean().item(),
                 rows_needing_perm=needs_perm.double().mean().item(),

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from rtap_tpu_torch.config import cluster_preset
-from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_cluster
+from rtap_tpu_torch.data.synthetic import cluster_streams
 from rtap_tpu_torch.models.state import init_state
 from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device, step_stages
 from rtap_tpu_torch.service.likelihood_batch import BatchAnomalyLikelihood
@@ -57,9 +57,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cfg = cluster_preset()
     G, W, R = args.streams, args.warm_ticks, args.ticks
-    streams = generate_cluster((G + 2) // 3, cfg=SyntheticStreamConfig(
-        length=W + R + 1, cadence_s=1.0, noise_phi=0.97, noise_scale=0.5, n_anomalies=0),
-        seed=args.seed)[:G]
+    streams = cluster_streams(G, W + R + 1, args.seed, n_anomalies=0)
     vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).to(dev)
     tss = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).to(dev)
     st = replicate_state_device(init_state(cfg, args.seed), G, dev)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtap_tpu_torch.ops.tm_learn import LearnConsts, tm_learn_kernel, tm_learn_plain
+from rtap_tpu_torch.ops.tm_learn import LearnConsts, as_bits, tm_learn_kernel, tm_learn_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -89,10 +89,14 @@ def _dead_flagless(rng, presyn, perm, meta):
 
 
 def _f32_clip(rng, presyn, perm, meta):
-    """Learning rows whose empty slots hold permanences outside [0, 1]: the
-    clip must rewrite them."""
+    """Learning rows whose empty slots hold permanences outside [0, 1] or
+    -0.0: the clip must rewrite them, and reinforce turns -0.0 into +0.0.
+    Some live synapses sit at +inf: the clip brings them to one on learning
+    rows; elsewhere eviction ranks them level with the free slots."""
     meta[rng.random(meta.shape) < 0.5] |= 1
-    perm[...] = np.where(presyn < 0, rng.choice(np.float32([-0.5, 1.5, 3.0]), perm.shape), perm)
+    odd = np.float32([-0.0, -0.5, 1.5, 3.0, np.inf, -np.inf])
+    perm[...] = np.where(presyn < 0, rng.choice(odd, perm.shape), perm)
+    perm[(presyn >= 0) & (rng.random(perm.shape) < 0.05)] = np.inf
 
 
 # (perm dtype, K, M, Ac, col0) with G = 5 streams of R = 300 rows, C = 64,
@@ -145,4 +149,5 @@ def test_kernel_matches_plain(cuda, case):
     for name, a, b in zip(("nsyn", "conn", "pot"), got, want):
         assert torch.equal(a.cpu(), b), name
     assert torch.equal(dev_args[0].cpu(), ref[0]), "presyn"
-    assert torch.equal(dev_args[1].cpu(), ref[1]), "perm"
+    # perm bit for bit: torch.equal holds -0.0 equal to +0.0
+    assert torch.equal(as_bits(dev_args[1].cpu()), as_bits(ref[1])), "perm"

@@ -177,34 +177,38 @@ BYTES_DOMAINS = {
 
 @pytest.mark.parametrize("perm_dtype", list(BYTES_DOMAINS), ids=["f32", "u16", "u8"])
 def test_pass_bytes_counts_what_rows_need(perm_dtype):
-    """A hand-made pass of four rows (G = 1, M = 3, K = 2, N = 8):
+    """A hand-made pass of five rows (G = 1, M = 3, K = 2, N = 8):
     row 0 empty and flagless (perm not read, not written); row 1 a live
     synapse, no flag, unchanged (perm read only); row 2 empty with the
     learn bit, unchanged (perm read only); row 3 a synapse at permanence 0,
-    no flag, which death kills (perm read, both pools written)."""
+    no flag, which death kills (perm read, presyn written); row 4 a live
+    synapse on a prev-active cell with the learn bit, which reinforce
+    raises (perm read and written)."""
     from rtap_tpu_torch.ops.tm_learn import pass_bytes, tm_learn_plain
 
     consts, live = BYTES_DOMAINS[perm_dtype]
-    presyn = torch.tensor([[[-1, -1, -1], [3, -1, -1], [-1, -1, -1], [5, -1, -1]]],
+    presyn = torch.tensor([[[-1, -1, -1], [3, -1, -1], [-1, -1, -1], [5, -1, -1], [3, -1, -1]]],
                           dtype=torch.int16)
-    perm = torch.tensor([[[0, 0, 0], [live, 0, 0], [0, 0, 0], [0, 0, 0]]]).to(perm_dtype)
-    meta = torch.tensor([[0, 0, 1, 0]], dtype=torch.int32)
-    ids = torch.tensor([[1, 4]], dtype=torch.int32)  # column 1, then the fill C = 4
+    perm = torch.tensor([[[0, 0, 0], [live, 0, 0], [0, 0, 0], [0, 0, 0], [live, 0, 0]]]).to(perm_dtype)
+    meta = torch.tensor([[0, 0, 1, 0, 1]], dtype=torch.int32)
+    ids = torch.tensor([[1, 4]], dtype=torch.int32)  # column 1 (cells 2, 3), then the fill C = 4
     masks = torch.tensor([[3, 0]], dtype=torch.int32)
     wids = torch.tensor([[2, 8, 8, 8]], dtype=torch.int32)
     args = (presyn, perm, meta, ids, masks, wids, ids, masks)
     after = [presyn.clone(), perm.clone()]
     tm_learn_plain(*after, *args[2:], LearnConsts(*consts), 2, 8)
-    assert int(after[0][0, 3, 0]) == -1 and torch.equal(after[0][0, :3], presyn[0, :3])
+    changed = [((a != b).any(-1))[0].tolist() for a, b in zip(after, (presyn, perm))]
+    assert changed == [[False, False, False, True, False], [False, False, False, False, True]]
 
     vs = perm.element_size()
     lists = 4 * (2 * 4) + 4 * 4  # ids/masks twice, [1, 2] int32 each; wids [1, 4]
-    data = (4 * 3 * 2        # presyn, every byte
-            + 4 * 4          # meta
+    data = (5 * 3 * 2        # presyn, every byte
+            + 5 * 4          # meta
             + lists
-            + 3 * 4          # nsyn/conn/pot, uint8 per row
-            + 3 * 3 * vs     # perm of rows 1-3
-            + 1 * 3 * (2 + vs))  # both pools of row 3
+            + 3 * 5          # nsyn/conn/pot, uint8 per row
+            + 4 * 3 * vs     # perm of rows 1-4
+            + 1 * 3 * 2      # presyn of row 3
+            + 1 * 3 * vs)    # perm of row 4
     read = sum(t.numel() * t.element_size() for t in args)
-    full = read + presyn.numel() * 2 + perm.numel() * vs + 3 * 4
+    full = read + presyn.numel() * 2 + perm.numel() * vs + 3 * 5
     assert pass_bytes(args, *after) == (data, full)
