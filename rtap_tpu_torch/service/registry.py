@@ -5,8 +5,8 @@ fixed-capacity groups, every stream of a group shares one batched step
 (ops/step.chunk_step), and the host keeps the likelihood and the debounced
 alerts. The device argument takes the place of the JAX package's
 ``backend``: ``cuda`` by default, ``"cpu"`` for the plain PyTorch path. The
-mesh, health, predict and checkpoint arguments are not ported yet; passing
-them raises.
+mesh, health and predict arguments are not ported yet; passing them
+raises. Checkpoints are service/checkpoint.py's.
 """
 
 from __future__ import annotations
@@ -82,11 +82,22 @@ class StreamGroup:
         # cadence reads: advanced per dispatched tick, reset when slot 0 is
         # re-initialized, so no tick reads it back from the device
         self._tick0 = 0
+        # resume cursors a checkpoint-loaded group carries (service/
+        # checkpoint.load_group): the alert sink's byte offset and the
+        # global journal tick at the save instant; None on a fresh group
+        self.resume_alerts_offset: int | None = None
+        self.resume_journal_tick: int | None = None
 
     # ---- dynamic membership (slots are static, streams are data) ----
     @property
     def n_live(self) -> int:
         return self.G - sum(1 for s in self.stream_ids if s.startswith(PAD_PREFIX))
+
+    def live_slots(self) -> np.ndarray:
+        """Slot indices holding real streams, ascending: emission and value
+        routing index with it so pad/released slots never surface."""
+        return np.array([i for i, s in enumerate(self.stream_ids)
+                         if not s.startswith(PAD_PREFIX)], np.int64)
 
     def free_slot_count(self) -> int:
         return self.G - self.n_live
@@ -160,9 +171,19 @@ class StreamGroup:
         self.state, raw = chunk_step(
             self.state, self._to_device(values), self._to_device(np.asarray(ts, np.int32)),
             self.cfg, learn=learn, tick0=self._tick0)
+        done = None
+        if self.device.type == "cuda":
+            # the scores' copy to pinned host memory is queued right behind
+            # this chunk, with an event: collecting it later waits for THIS
+            # chunk only, not for chunks dispatched after it (a .cpu() at
+            # collect time would queue behind those and overlap nothing)
+            host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+            host.copy_(raw, non_blocking=True)
+            raw, done = host, torch.cuda.Event()
+            done.record()
         self._tick0 += T
         self._seq += 1
-        return {"raw": raw, "T": T, "seq": self._seq}
+        return {"raw": raw, "done": done, "T": T, "seq": self._seq}
 
     def collect_chunk(self, handle: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Block on a dispatched chunk -> (raw [T, G], log_likelihood [T, G],
@@ -171,7 +192,9 @@ class StreamGroup:
             raise RuntimeError(
                 f"collect_chunk out of order: handle seq {handle['seq']}, "
                 f"expected {self._collected + 1} (likelihood state is sequential)")
-        raw = handle["raw"].cpu().numpy()
+        if handle["done"] is not None:
+            handle["done"].synchronize()
+        raw = handle["raw"].numpy()
         self._collected = handle["seq"]
         T = handle["T"]
         self.ticks += T
@@ -193,6 +216,16 @@ class StreamGroup:
     def overflow_total(self) -> int:
         """Sum of the per-stream kernel capacity-overflow counters."""
         return int(self.state["tm_overflow"].sum())
+
+
+@dataclass(frozen=True)
+class SlotAddress:
+    """A stream's (shard, group, slot) address. ``shard`` is 0: the port
+    runs each group on one device."""
+
+    shard: int
+    group: int
+    slot: int
 
 
 @dataclass
@@ -220,10 +253,15 @@ class StreamGroupRegistry:
         self._slots: dict[str, _Slot] = {}
         self._pending: list[str] = []
         self._finalized = False
+        # bumped on every post-finalize membership change; live_loop watches
+        # it to rebuild value/emission routing
+        self.version = 0
 
     def add_stream(self, stream_id: str) -> None:
         """Register a stream: buffered into the next group before
-        :meth:`finalize`, claiming a free pad slot after it."""
+        :meth:`finalize`, claiming a free pad slot after it (RuntimeError
+        when every slot is live; capacity comes from group-size rounding,
+        `reserve` slots or released streams)."""
         if stream_id.startswith(PAD_PREFIX):
             raise ValueError(f"stream id may not start with {PAD_PREFIX!r}")
         if stream_id in self._slots or stream_id in self._pending:
@@ -233,12 +271,27 @@ class StreamGroupRegistry:
                 if grp.free_slot_count():
                     slot = grp.claim_slot(stream_id)
                     self._slots[stream_id] = _Slot(grp, slot)
+                    self.version += 1
                     return
             raise RuntimeError(
-                f"registry at capacity ({len(self._slots)} live streams, 0 free slots)")
+                f"registry at capacity ({len(self._slots)} live streams, 0 "
+                "free slots): pre-provision with reserve= or release "
+                "departed streams")
         self._pending.append(stream_id)
         if len(self._pending) == self.group_size:
             self._seal()
+
+    def remove_stream(self, stream_id: str) -> None:
+        """Release a departed stream's slot back to pad capacity (it stops
+        being fed and emitted; a later add_stream may claim it).
+        Post-finalize only."""
+        if not self._finalized:
+            raise RuntimeError("remove_stream is a post-finalize operation")
+        s = self._slots.pop(stream_id, None)
+        if s is None:
+            raise KeyError(f"unknown stream id {stream_id!r}")
+        s.group.release_slot(stream_id)
+        self.version += 1
 
     def _new_group(self, ids: list[str]) -> StreamGroup:
         grp = StreamGroup(self.cfg, ids,
@@ -257,9 +310,42 @@ class StreamGroupRegistry:
             self._slots[sid] = _Slot(grp, i)
         self._pending = []
 
-    def finalize(self) -> None:
-        """Seal the last partially-filled group, padded to group_size; later
-        streams claim its pad slots."""
+    def finalize(self, reserve: int = 0) -> None:
+        """Seal the last partially-filled group, padded to group_size.
+        `reserve` adds that many extra claimable pad slots (counting the
+        pads the rounding already left, rounded up to whole all-pad
+        groups)."""
+        if reserve < 0:
+            raise ValueError(f"reserve must be >= 0; got {reserve}")
+        rounding_pads = (-len(self._pending)) % self.group_size if self._pending else 0
         self._seal()
+        extra = max(0, reserve - rounding_pads)
+        for _ in range((extra + self.group_size - 1) // self.group_size):
+            self._new_group([f"{PAD_PREFIX}{i}" for i in range(self.group_size)])
         self._finalized = True
 
+    def lookup(self, stream_id: str) -> tuple[StreamGroup, int]:
+        s = self._slots[stream_id]
+        return s.group, s.index
+
+    def __contains__(self, stream_id: str) -> bool:
+        return stream_id in self._slots or stream_id in self._pending
+
+    def dispatch_ids(self) -> list[str]:
+        """Live stream ids in (group, slot) order — the value-vector order
+        live_loop's routing and every source snapshot follow."""
+        return [g.stream_ids[i] for g in self.groups for i in g.live_slots()]
+
+    def slot_map(self) -> dict[str, SlotAddress]:
+        """Live stream id -> (shard, group, slot) address; iterating it
+        reproduces :meth:`dispatch_ids`. Pads/released slots are absent."""
+        return {g.stream_ids[int(slot)]: SlotAddress(shard=0, group=gi, slot=int(slot))
+                for gi, g in enumerate(self.groups) for slot in g.live_slots()}
+
+    @property
+    def free_slots(self) -> int:
+        return sum(g.free_slot_count() for g in self.groups)
+
+    @property
+    def n_streams(self) -> int:
+        return len(self._slots) + len(self._pending)

@@ -151,3 +151,43 @@ def test_kernel_matches_plain(cuda, case):
     assert torch.equal(dev_args[0].cpu(), ref[0]), "presyn"
     # perm bit for bit: torch.equal holds -0.0 equal to +0.0
     assert torch.equal(as_bits(dev_args[1].cpu()), as_bits(ref[1])), "perm"
+
+
+def test_live_loop_on_card_matches_cpu(cuda, tmp_path):
+    """The serve loop on the card (the learning kernel) and on the CPU
+    (its plain version): the same alert bytes and state leaves, and one
+    kernel launch per group per learning tick on the card."""
+    import dataclasses
+
+    from rtap_tpu_torch.config import scaled_cluster_preset
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.service.loop import live_loop
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+
+    cfg = scaled_cluster_preset(32)
+    cfg = dataclasses.replace(cfg, likelihood=dataclasses.replace(
+        cfg.likelihood, learning_period=10, estimation_samples=5))
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(6)]
+
+    def source(k):
+        rng = np.random.Generator(np.random.Philox(key=(5, k)))
+        v = (30 + 8 * np.sin(k / 3.0 + np.arange(6)) + rng.normal(0, 0.5, 6)).astype(np.float32)
+        return v, 1_700_000_000 + k
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        reg = StreamGroupRegistry(cfg, group_size=3, device=dev, threshold=0.007, debounce=2)
+        for sid in ids:
+            reg.add_stream(sid)
+        reg.finalize()
+        stats = live_loop(source, reg, n_ticks=40, cadence_s=0.0, pipeline_depth=2,
+                          alert_path=str(tmp_path / dev))
+        out[dev] = (stats, [state_to_numpy(g.state) for g in reg.groups],
+                    [ln for ln in open(tmp_path / dev) if not ln.startswith('{"event"')])
+    (cs, cstate, clines), (ps, pstate, plines) = out["cuda"], out["cpu"]
+    assert clines == plines and len(clines) > 0
+    for a, b in zip(cstate, pstate):
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), k
+    assert cs["kernel_launches"] == {"tm_learn": 2 * 40} and ps["kernel_launches"] == {"tm_learn": 0}
+    assert cs["hbm_peak_bytes_in_use"] > 0 and "hbm_bytes_in_use" not in ps
