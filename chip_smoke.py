@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's replay and serve paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T]
 
@@ -46,6 +46,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    bit-equal to the fault-free run, every alert id exactly once with equal
    record bytes, both kills rc -9, and the fault-free child's launches
    equal to groups x learning ticks.
+8. serve with the model-side flags: phase 6's serve (32,768 streams in 8
+   groups of 4,096, depth 2, 1 s cadence, 40 learning ticks, the journal,
+   the tick-gated feeder) with ``--health --predict --topology infer``, ids
+   renamed ``svc<s>-<n>.<metric>`` so the inferred topology groups them
+   (128 services), timestamps anchored ahead of the wall clock, and no
+   checkpoint dir. Gates: exit 0, every tick scored, one kernel launch per
+   group per tick, 8 x 40 health and predict folds, a finite fleet miss
+   EWMA, the trackers armed, ``<alerts>.epoch`` at 1. Latency, per-phase ms
+   and peak memory are reported beside phase 6's.
+9. flags on vs off: the drill's shape (2 groups of 1,024, 96 ticks at
+   cadence 0, every stream alerting every tick) through ``live_loop`` on
+   the card with health + predict 8 and the trackers, and without: every
+   model leaf (the predictor's own aside) bit-equal, the raw scores bit
+   for bit and the alert lines byte for byte; launches equal; every scored
+   stream's miss EWMA finite. Then one learning tick of a 64-stream slice of
+   that state on the card and on the CPU with both reducers: predict leaves,
+   raw and state bit for bit, health integers exact and floats at
+   rtol=1e-5, atol=1e-6.
+10. the cascade eval: ``python -m rtap_tpu_torch.predict_eval`` at the JAX
+   script's defaults on the card (win, blast covered, 0 false precursors)
+   and on this machine's CPU (the same page tick and first-precursor
+   ticks); then on the card with ``--workdir``, killed with SIGKILL once
+   its first precursor is on the alert stream and resumed from its
+   checkpoint and journal: every precursor, predicted_incident and
+   incident id exactly once, the page tick unchanged.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -348,32 +373,23 @@ def _tree_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def phase_serve(seed: int, card: str) -> dict:
-    """`python -m rtap_tpu_torch serve` at full width in a child process,
-    fed over TCP by this process in step with the child's ticks; checks
-    its stats line."""
-    from rtap_tpu_torch.data.synthetic import cluster_streams
+def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list[str]) -> tuple:
+    """`python -m rtap_tpu_torch serve` on cuda over `ids` (groups of
+    SERVE_GROUP, depth 2, 1 s cadence, SERVE_TICKS ticks, alerts and the
+    journal in `work`, plus `extra` flags), fed over TCP by this process:
+    tick t + 1's records when the child journals tick t -> (stats, records
+    sent, stderr)."""
     from rtap_tpu_torch.resilience.journal import last_journal_tick
     from rtap_tpu_torch.service.sources import send_jsonl
 
-    work = tempfile.mkdtemp(prefix="rtap-serve-")
-    t0 = time.perf_counter()
-    # tick 0 polls before anything is sent; ticks 1.. get one fed tick each
-    streams = cluster_streams(SERVE_STREAMS, SERVE_TICKS - 1, seed, n_anomalies=0)
-    ids = [s.stream_id for s in streams]
-    ticks = [[{"id": sid, "value": float(s.values[t]), "ts": int(s.timestamps[t])}
-              for sid, s in zip(ids, streams)] for t in range(SERVE_TICKS - 1)]
-    gen_s = time.perf_counter() - t0
-    parse_rate = parse_capacity(ticks[0], ids)
     with open(os.path.join(work, "ids.txt"), "w") as f:
         f.write("\n".join(ids) + "\n")
-    journal_dir, ck_dir = os.path.join(work, "journal"), os.path.join(work, "ck")
+    journal_dir = os.path.join(work, "journal")
     cmd = [sys.executable, "-m", "rtap_tpu_torch", "serve", "--streams",
            "@" + os.path.join(work, "ids.txt"), "--device", "cuda",
            "--group-size", str(SERVE_GROUP), "--pipeline-depth", "2", "--cadence", "1.0",
            "--ticks", str(SERVE_TICKS), "--port", "0",
-           "--alerts", os.path.join(work, "alerts.jsonl"), "--journal-dir", journal_dir,
-           "--checkpoint-dir", ck_dir, "--checkpoint-every", str(SERVE_CHECKPOINT_EVERY)]
+           "--alerts", os.path.join(work, "alerts.jsonl"), "--journal-dir", journal_dir, *extra]
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     err_lines: list[str] = []
@@ -409,14 +425,44 @@ def phase_serve(seed: int, card: str) -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"serve exited {proc.returncode}:\n"
                                  + "".join(err_lines)[-3000:])
-        ck_bytes = _tree_bytes(ck_dir)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         reader.join(timeout=10)
+    return json.loads(out.strip().splitlines()[-1]), sent, "".join(err_lines)
+
+
+def _serve_feed(seed: int, ts0: int | None = None):
+    """Seeded synthetic cluster values for SERVE_STREAMS streams -> (their
+    stream ids, one record list per fed tick 1..SERVE_TICKS-1, seconds).
+    `ts0` re-anchors the timestamps (tick 0 at ts0)."""
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+
+    t0 = time.perf_counter()
+    # tick 0 polls before anything is sent; ticks 1.. get one fed tick each
+    streams = cluster_streams(SERVE_STREAMS, SERVE_TICKS - 1, seed, n_anomalies=0)
+    ids = [s.stream_id for s in streams]
+    shift = 0 if ts0 is None else ts0 + 1 - int(streams[0].timestamps[0])
+    ticks = [[{"id": sid, "value": float(s.values[t]), "ts": int(s.timestamps[t]) + shift}
+              for sid, s in zip(ids, streams)] for t in range(SERVE_TICKS - 1)]
+    return ids, ticks, time.perf_counter() - t0
+
+
+def phase_serve(seed: int, card: str) -> dict:
+    """`python -m rtap_tpu_torch serve` at full width in a child process,
+    fed over TCP by this process in step with the child's ticks; checks
+    its stats line."""
+    work = tempfile.mkdtemp(prefix="rtap-serve-")
+    ids, ticks, gen_s = _serve_feed(seed)
+    parse_rate = parse_capacity(ticks[0], ids)
+    ck_dir = os.path.join(work, "ck")
+    try:
+        stats, sent, _ = _serve_child(ids, ticks, work, [
+            "--checkpoint-dir", ck_dir, "--checkpoint-every", str(SERVE_CHECKPOINT_EVERY)])
+        ck_bytes = _tree_bytes(ck_dir)
+    finally:
         shutil.rmtree(work, ignore_errors=True)
-    stats = json.loads(out.strip().splitlines()[-1])
     tel = _telemetry(stats)
     groups = SERVE_STREAMS // SERVE_GROUP
     checks = {
@@ -465,6 +511,89 @@ def phase_serve(seed: int, card: str) -> dict:
                kernel_launches=stats["kernel_launches"]["tm_learn"],
                feed_gen_s=gen_s, card=card)
     emit("serve", **row)
+    return row
+
+
+def service_ids(ids: list[str]) -> list[str]:
+    """Rename cluster_streams' ``node<i>.<metric>`` ids to a shape that
+    ``TopologyMap.infer`` groups: ``svc<s>-<n>.<metric>``, 64 nodes per
+    service (128 services at 32,768 streams)."""
+    out = []
+    for i, sid in enumerate(ids):
+        node = int(sid.split(".", 1)[0][4:])
+        out.append(f"svc{node // 64:03d}-{node % 64:02d}.{sid.split('.', 1)[1]}")
+    assert len(set(out)) == len(out)
+    return out
+
+
+def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
+    """Phase 6's serve with --health, --predict and --topology infer, no
+    checkpoint dir; its latency and per-phase ms beside phase 6's."""
+    work = tempfile.mkdtemp(prefix="rtap-serve-ms-")
+    # anchored at wall-clock time plus a margin: a fed ts in the past would
+    # be clamped up to the wall clock and freeze the correlation clock
+    ids, ticks, gen_s = _serve_feed(seed, ts0=int(time.time()) + 3600)
+    ids = service_ids(ids)
+    for records in ticks:
+        for r, sid in zip(records, ids):
+            r["id"] = sid
+    try:
+        stats, sent, err = _serve_child(ids, ticks, work,
+                                        ["--health", "--predict", "--topology", "infer"])
+        epoch_file = os.path.join(work, "alerts.jsonl.epoch")
+        epoch = json.loads(open(epoch_file).read())["epoch"] if os.path.exists(epoch_file) else None
+        events: dict = {}
+        missed = []  # (tick, seconds) of each missed deadline
+        for line in open(os.path.join(work, "alerts.jsonl")):
+            if line.startswith('{"event"'):
+                ev = json.loads(line)
+                events[ev["event"]] = events.get(ev["event"], 0) + 1
+                if ev["event"] == "missed_tick":
+                    missed.append((ev["tick"], ev["elapsed_s"]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    groups = SERVE_STREAMS // SERVE_GROUP
+    health, predict = stats.get("health", {}), stats.get("predict", {})
+    ewma_max = predict.get("miss_ewma_max")
+    checks = {
+        "ticks": stats["ticks"] == SERVE_TICKS,
+        "scored": stats["scored"] == SERVE_TICKS * SERVE_STREAMS,
+        "missing_values": stats["missing_values"] == SERVE_STREAMS,
+        "records_parsed": stats["records_parsed"] == sent == (SERVE_TICKS - 1) * SERVE_STREAMS,
+        "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * SERVE_TICKS,
+        "health_folds": health.get("groups") == groups
+                        and health.get("ticks_folded") == groups * SERVE_TICKS,
+        # the predictor folds every group tick of every group
+        "predict_folds": predict.get("groups") == groups
+                         and predict.get("ticks_folded") == groups * SERVE_TICKS,
+        # streams scored from tick k on: the fleet's worst EWMA is a number
+        "miss_ewma_finite": ewma_max is not None and 0.0 <= ewma_max <= 1.0,
+        "incidents_stats": "incidents" in stats,
+        "run_epoch": epoch == 1,
+        "armed": all(a in err for a in ("model-health reducers armed",
+                                        "predictive horizon armed (k=8 ticks",
+                                        "incident correlation armed (inferred")),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serve --health --predict --topology checks failed {bad}: "
+                             f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
+    row = dict(streams=SERVE_STREAMS, group_size=SERVE_GROUP, groups=groups,
+               ticks=stats["ticks"], flags=["--health", "--predict", "--topology infer"],
+               scored=stats["scored"], alerts=stats["alerts"],
+               latency_p50_ms=stats["latency_p50_ms"], latency_p90_ms=stats["latency_p90_ms"],
+               latency_p99_ms=stats["latency_p99_ms"], latency_max_ms=stats["latency_max_ms"],
+               missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
+               phase_ms_per_tick=stats["phase_ms_per_tick"],
+               phase6_latency_p50_ms=serve_row["latency_p50_ms"],
+               phase6_latency_p99_ms=serve_row["latency_p99_ms"],
+               phase6_phase_ms_per_tick=serve_row["phase_ms_per_tick"],
+               health=health, predict=predict, incidents=stats["incidents"],
+               events_on_stream=events, run_epoch=epoch,
+               hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"],
+               phase6_hbm_peak_bytes_in_use=serve_row["hbm_peak_bytes_in_use"],
+               kernel_launches=stats["kernel_launches"]["tm_learn"], feed_gen_s=gen_s, card=card)
+    emit("serve_model_side", **row)
     return row
 
 
@@ -658,6 +787,244 @@ def _kill_drill(root: str, children: list, seed: int, card: str) -> dict:
     return row
 
 
+def phase_flags_on_off(seed: int, card: str) -> dict:
+    """The drill's shape (2 groups of 1,024, 96 ticks at cadence 0, every
+    stream alerting every tick) through live_loop on the card twice: with
+    --health and --predict 8 (trackers on) and without. Then one learning
+    tick of a 64-stream slice of the flags-on state with both reducers on
+    the card and on the CPU."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.config import cluster_preset
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.obs.health import HealthTracker
+    from rtap_tpu_torch.obs.metrics import TelemetryRegistry
+    from rtap_tpu_torch.ops.step import chunk_step
+    from rtap_tpu_torch.predict import PredictTracker
+    from rtap_tpu_torch.service.loop import live_loop
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+
+    cfg = cluster_preset()
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
+
+    def source(k):
+        rng = np.random.Generator(np.random.Philox(key=(seed, k)))
+        v = (30 + 5 * rng.random(len(ids))).astype(np.float32)
+        v[k % len(ids)] += 30.0
+        return v, 1_700_000_000 + k
+
+    work = tempfile.mkdtemp(prefix="rtap-onoff-")
+    runs = {}
+    try:
+        for name, on in (("on", True), ("off", False)):
+            reg = StreamGroupRegistry(cfg, group_size=DRILL_GROUP, device="cuda", threshold=0.0,
+                                      debounce=1, health=on, predict=8 if on else 0)
+            for sid in ids:
+                reg.add_stream(sid)
+            reg.finalize()
+            trackers = dict(health=HealthTracker(cfg, registry=TelemetryRegistry()),
+                            predictor=PredictTracker(8, registry=TelemetryRegistry())) if on else {}
+            path = os.path.join(work, f"{name}.jsonl")
+            tl.reset_launches()
+            t0 = time.perf_counter()
+            stats = live_loop(source, reg, n_ticks=DRILL_TICKS, cadence_s=0.0, alert_path=path,
+                              pipeline_depth=2, **trackers)
+            torch.cuda.synchronize()
+            runs[name] = dict(reg=reg, stats=stats, launches=tl.launches,
+                              seconds=time.perf_counter() - t0,
+                              lines=[ln for ln in open(path) if not ln.startswith('{"event"')])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    on, off = runs["on"], runs["off"]
+    pred_leaves = {"pred_ring", "pred_miss_ewma", "pred_tick0"}
+    leaf_diff, compared = [], 0
+    for gon, goff in zip(on["reg"].groups, off["reg"].groups):
+        son, soff = state_to_numpy(gon.state), state_to_numpy(goff.state)
+        if set(son) - set(soff) != pred_leaves:
+            leaf_diff.append(f"leaf sets differ: {sorted(set(son) ^ set(soff))}")
+        for k in soff:
+            compared += 1
+            if not np.array_equal(son[k], soff[k], equal_nan=True):
+                leaf_diff.append(k)
+
+    def raws(lines):
+        return np.array([json.loads(ln)["raw_score"] for ln in lines], np.float32)
+
+    scored = [g.last_predict["scored"] for g in on["reg"].groups]
+    ewma = [g.last_predict["miss_ewma"] for g in on["reg"].groups]
+    checks = {
+        "model_leaves_equal": not leaf_diff,
+        "alert_lines_equal": on["lines"] == off["lines"],
+        "alert_lines": len(on["lines"]) == DRILL_STREAMS * DRILL_TICKS,
+        "raw_bits_equal": np.array_equal(raws(on["lines"]).view(np.uint32),
+                                         raws(off["lines"]).view(np.uint32)),
+        "launches": on["launches"] == off["launches"] == 2 * DRILL_TICKS,
+        "health_folds": on["stats"]["health"]["ticks_folded"] == 2 * DRILL_TICKS,
+        "predict_folds": on["stats"]["predict"]["ticks_folded"] == 2 * DRILL_TICKS,
+        # every stream scores past the horizon; each scored EWMA is a number
+        "scored_all": all(s[-1].all() for s in scored),
+        "miss_ewma_finite": all(np.isfinite(e[s]).all() for e, s in zip(ewma, scored)),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"flags on vs off failed {bad}; leaves {leaf_diff[:8]}")
+
+    # one learning tick of a 64-stream slice: card vs CPU
+    grp = on["reg"].groups[0]
+    n = 64
+    sub = {k: v[:n].contiguous() for k, v in grp.state.items()}
+    vals, ts = source(DRILL_TICKS)
+    v1 = torch.from_numpy(vals[:n].reshape(1, n, 1))
+    t1 = torch.full((1, n), ts, dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = {k: x.to(dev).clone() for k, x in sub.items()}
+        st, ((raw, hleaf), pleaf) = chunk_step(st, v1.to(dev), t1.to(dev), cfg,
+                                               tick0=grp._tick0, health=True, predict=True)
+        out[dev] = (raw.cpu().numpy(), {k: x.cpu().numpy() for k, x in hleaf.items()},
+                    {k: x.cpu().numpy() for k, x in pleaf.items()}, state_to_numpy(st))
+    (rc, hc, pc, sc), (rp, hp, pp, sp) = out["cuda"], out["cpu"]
+    health_err = {}
+    for k in hp:
+        if hp[k].dtype.kind == "i":
+            if not np.array_equal(hc[k], hp[k]):
+                raise AssertionError(f"health leaf {k} differs between card and CPU")
+        else:
+            np.testing.assert_allclose(hc[k], hp[k], rtol=1e-5, atol=1e-6, err_msg=k)
+            health_err[k] = float(np.abs(hc[k].astype(np.float64) - hp[k]).max())
+    pred_bad = [k for k in pp if not np.array_equal(pc[k], pp[k], equal_nan=True)]
+    state_bad = [k for k in sp if not np.array_equal(sc[k], sp[k], equal_nan=True)]
+    if pred_bad or state_bad or not np.array_equal(rc, rp):
+        raise AssertionError(f"card vs CPU: predict leaves {pred_bad}, state {state_bad}, "
+                             f"raw equal {np.array_equal(rc, rp)}")
+    row = dict(streams=DRILL_STREAMS, groups=2, ticks=DRILL_TICKS, horizon=8,
+               model_leaves_compared=compared, alert_lines=len(on["lines"]),
+               launches_on=on["launches"], launches_off=off["launches"],
+               seconds_on=on["seconds"], seconds_off=off["seconds"],
+               phase_ms_per_tick_on=on["stats"]["phase_ms_per_tick"],
+               phase_ms_per_tick_off=off["stats"]["phase_ms_per_tick"],
+               health=on["stats"]["health"], predict=on["stats"]["predict"],
+               card_vs_cpu=dict(streams=n, tick=grp._tick0, predict_leaves_bit_equal=True,
+                                state_bit_equal=True, raw_bit_equal=True,
+                                health_ints_exact=True, health_float_max_abs_err=health_err),
+               card=card)
+    emit("flags_on_vs_off", **row)
+    return row
+
+
+def _eval_cmd(device: str, *extra: str) -> list[str]:
+    return [sys.executable, "-m", "rtap_tpu_torch.predict_eval", "--device", device, *extra]
+
+
+def _event_ids(path: str) -> list[str]:
+    """precursor / predicted_incident / incident ids on an alert stream."""
+    ids = []
+    for line in open(path):
+        if line.startswith('{"event"'):
+            ev = json.loads(line)
+            if ev["event"] in ("precursor", "predicted_incident"):
+                ids.append(ev["alert_id"])
+            elif ev["event"] == "incident":
+                ids.append(ev["incident_id"])
+    return ids
+
+
+def phase_cascade(card: str) -> dict:
+    """``python -m rtap_tpu_torch.predict_eval`` at the JAX script's defaults
+    on the card and on this machine's CPU (same page tick and first-precursor
+    ticks), then on the card as a restartable serve (``--workdir``) killed
+    with SIGKILL after its first precursor and resumed from its checkpoint
+    and journal: every event id once, the page tick unchanged."""
+    root = Path(os.path.dirname(os.path.abspath(__file__)))
+    work = tempfile.mkdtemp(prefix="rtap-cascade-")
+    procs: list[subprocess.Popen] = []
+
+    def start(cmd):
+        procs.append(subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        return procs[-1]
+
+    def finish(p, ok=(0,)):
+        out, err = p.communicate(timeout=900)
+        if p.returncode not in ok:
+            raise AssertionError(f"predict_eval exited {p.returncode}:\n{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1]) if out.strip() else None
+
+    t0 = time.perf_counter()
+    try:
+        # one after the other: the CPU run's threads would slow the card run's host
+        card_res = finish(start(_eval_cmd("cuda")))
+        cuda_s = time.perf_counter() - t0
+        cpu_res = finish(start(_eval_cmd("cpu")))
+        score, cpu_score = card_res["score"], cpu_res["score"]
+        checks = {
+            "verified": card_res["verified"] and score["win"] and score["blast_covered"]
+                        and score["false_precursors"] == 0,
+            "device": card_res["device"].startswith("cuda") and cpu_res["device"] == "cpu",
+            "page_tick_as_cpu": score["page_tick"] == cpu_score["page_tick"],
+            "first_precursors_as_cpu": score["first_precursor_by_node"]
+                                       == cpu_score["first_precursor_by_node"],
+            "blast_as_cpu": score["predicted_incident"] == cpu_score["predicted_incident"],
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"cascade eval failed {bad}: card {score} cpu {cpu_score}")
+
+        # the kill drill: SIGKILL after the first precursor reaches the stream
+        wd = os.path.join(work, "w")
+        alerts = os.path.join(wd, "alerts.jsonl")
+        cmd = _eval_cmd("cuda", "--workdir", wd, "--cadence", "0.02")
+        p = start(cmd)
+        kill, seen, pos = None, "", 0
+        deadline = time.monotonic() + 600
+        while p.poll() is None and time.monotonic() < deadline:
+            if os.path.exists(alerts):
+                with open(alerts) as f:
+                    f.seek(pos)
+                    chunk = f.read()
+                pos += len(chunk.encode())
+                seen = (seen + chunk)[-4096:]
+                if '{"event": "precursor"' in seen:
+                    p.send_signal(signal.SIGKILL)  # no cleanup, no flush
+                    kill = {"events_before": len(_event_ids(alerts))}
+                    break
+            time.sleep(0.005)
+        p.communicate(timeout=900)
+        if kill is None:
+            raise AssertionError(f"the first precursor never reached the stream (rc {p.returncode})")
+        kill["rc"] = p.returncode
+        final = finish(start(cmd))
+        ids = _event_ids(alerts)
+        dup = sorted({i for i in ids if ids.count(i) > 1})
+        fscore = final["score"]
+        checks = {
+            "killed": kill["rc"] == -signal.SIGKILL,
+            "resumed": final["resumed_at_tick"] > 0,
+            "event_ids_once": not dup,
+            "page_tick_unchanged": fscore["page_tick"] == score["page_tick"],
+            "blast_unchanged": fscore["predicted_incident"] == score["predicted_incident"],
+            "verified": final["verified"],
+            "incident_lines": any(i.startswith("inc-") for i in ids),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"cascade kill drill failed {bad}: kill {kill}, duplicated "
+                                 f"{dup[:5]}, final {fscore}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    row = dict(scenario=card_res["scenario"], predictor=card_res["predictor"], score=score,
+               card_elapsed_s=card_res["elapsed_s"], cpu_elapsed_s=cpu_res["elapsed_s"],
+               card_wall_s=cuda_s, page_tick_equal_cpu=True, first_precursors_equal_cpu=True,
+               kill=kill, resumed_at_tick=final["resumed_at_tick"], event_ids=len(ids),
+               event_ids_duplicated=0, final_score=fscore, incidents=final.get("incidents"),
+               seconds=time.perf_counter() - t0, card=card)
+    emit("cascade", **row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -721,6 +1088,12 @@ def main() -> int:
     serve_row = phase_serve(args.seed, smi)
     # 7. kill -9 drill
     drill_row = phase_kill_drill(args.seed, smi)
+    # 8. serve with the model-side flags at full width
+    ms_row = phase_serve_model_side(args.seed, smi, serve_row)
+    # 9. flags on vs off, and the reducers card vs CPU
+    onoff_row = phase_flags_on_off(args.seed, smi)
+    # 10. the cascade eval on the card, then killed and resumed
+    phase_cascade(smi)
 
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,
@@ -732,7 +1105,9 @@ def main() -> int:
         "library_ms": None,
         # each path's launches, counted from 0 around that path's run
         "launches_by_path": {"replay": launches, "serve": serve_row["kernel_launches"],
-                             "kill_drill": drill_row["fault_free_kernel_launches"]},
+                             "kill_drill": drill_row["fault_free_kernel_launches"],
+                             "serve_model_side": ms_row["kernel_launches"],
+                             "flags_on": onoff_row["launches_on"]},
     }
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kern]}), flush=True)

@@ -36,12 +36,6 @@ UNPORTED_SERVE_FLAGS = {
                     (True, "the resilience slice")),
     **dict.fromkeys(("--ingest-port", "--ingest-shm", "--ingest-quota",
                      "--ingest-backfill-horizon"), (True, "binary ingest")),
-    **dict.fromkeys(("--health-occupancy-threshold", "--health-sparsity-min-frac",
-                     "--health-drift-threshold", "--health-drift-min-ticks",
-                     "--predict-horizon", "--predict-threshold", "--predict-min-ticks",
-                     "--topology", "--correlate-window", "--correlate-min-streams"),
-                    (True, "A.8")),
-    **dict.fromkeys(("--health", "--predict"), (False, "A.8")),
     **dict.fromkeys(("--latency-window", "--slo", "--slo-fast-window", "--slo-slow-window",
                      "--trace-out", "--trace-ring", "--postmortem-dir", "--flight-ticks",
                      "--obs-port", "--obs-snapshot", "--jax-trace"),
@@ -85,8 +79,89 @@ def _refused_serve_flag(args: argparse.Namespace) -> str | None:
     return None
 
 
+def _model_side_usage_error(args: argparse.Namespace) -> str | None:
+    """The JAX package's usage errors of the health/predict/topology flags."""
+    if (args.correlate_window is not None or args.correlate_min_streams is not None) \
+            and not args.topology:
+        return ("--correlate-window/--correlate-min-streams are incident-correlation "
+                "knobs; add --topology (a spec path or 'infer')")
+    if args.topology and not args.alerts:
+        return ("--topology needs --alerts — incidents are emitted on (and "
+                "resume-recovered from) the alert stream")
+    if args.correlate_window is not None and args.correlate_window < 1:
+        return "--correlate-window must be >= 1"
+    if args.correlate_min_streams is not None and args.correlate_min_streams < 2:
+        return ("--correlate-min-streams must be >= 2 (one stream is a per-stream "
+                "alert, not an incident)")
+    if (args.predict_horizon is not None or args.predict_threshold is not None
+            or args.predict_min_ticks is not None) and not args.predict:
+        return ("--predict-horizon/--predict-threshold/--predict-min-ticks are "
+                "predictive-horizon knobs; add --predict")
+    if args.predict_horizon is not None and args.predict_horizon < 1:
+        return ("--predict-horizon must be >= 1 (the reducer scores each tick's "
+                "prediction against the input that many ticks later)")
+    if args.predict_min_ticks is not None and args.predict_min_ticks < 1:
+        return "--predict-min-ticks must be >= 1"
+    return None
+
+
+def _model_side_trackers(args: argparse.Namespace, cfg, ids: list[str], predict_k: int):
+    """(health, correlator, predictor) from the flags, each None when off;
+    a bad value is a usage error (exit 2) raised as ValueError with the
+    JAX package's message."""
+    from rtap_tpu_torch.correlate import IncidentCorrelator, TopologyMap
+    from rtap_tpu_torch.obs.health import HealthTracker
+    from rtap_tpu_torch.predict import BlastFuser, PredictTracker
+
+    correlator = None
+    if args.topology:
+        try:
+            topo = TopologyMap.infer() if args.topology == "infer" \
+                else TopologyMap.from_spec(args.topology)
+            # only user-set knobs become kwargs: the class owns the defaults
+            knobs = {k: v for k, v in (("window_s", args.correlate_window),
+                                       ("min_streams", args.correlate_min_streams))
+                     if v is not None}
+            correlator = IncidentCorrelator(topo, **knobs)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            raise ValueError(f"bad --topology {args.topology}: {e}") from e
+        print(f"serve: incident correlation armed "
+              f"({'inferred' if args.topology == 'infer' else args.topology}; "
+              f"window {correlator.window_s}s, min {correlator.min_streams} streams)",
+              file=sys.stderr)
+    health = None
+    if args.health:
+        try:
+            health = HealthTracker(cfg, occupancy_threshold=args.health_occupancy_threshold,
+                                   sparsity_min_frac=args.health_sparsity_min_frac,
+                                   drift_threshold=args.health_drift_threshold,
+                                   drift_min_ticks=args.health_drift_min_ticks)
+        except ValueError as e:
+            raise ValueError(f"bad --health parameters: {e}") from e
+        print("serve: model-health reducers armed "
+              f"(drift tvd>={args.health_drift_threshold} after "
+              f"{args.health_drift_min_ticks} ticks, pool occupancy>="
+              f"{args.health_occupancy_threshold})", file=sys.stderr)
+    predictor = None
+    if args.predict:
+        try:
+            predictor = PredictTracker(
+                horizon=predict_k,
+                threshold=args.predict_threshold if args.predict_threshold is not None else 0.35,
+                min_ticks=args.predict_min_ticks if args.predict_min_ticks is not None else 12,
+                blast=BlastFuser(correlator.topology, seed_streams=ids)
+                if correlator is not None else None)
+        except ValueError as e:
+            raise ValueError(f"bad --predict parameters: {e}") from e
+        print(f"serve: predictive horizon armed (k={predict_k} ticks, miss ewma>="
+              f"{predictor.threshold} for {predictor.min_ticks} ticks"
+              + (", blast fusion on" if predictor.blast is not None else "") + ")",
+              file=sys.stderr)
+    return health, correlator, predictor
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
-    refused = _refused_serve_flag(args)
+    refused = _refused_serve_flag(args) or _model_side_usage_error(args)
     if refused:
         print(f"serve: {refused}", file=sys.stderr)
         return 2
@@ -98,6 +173,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     if args.streams is None:
         print("serve: --streams is required", file=sys.stderr)
         return 2
+    from rtap_tpu_torch.obs.health import bump_run_epoch
     from rtap_tpu_torch.obs.metrics import get_registry
     from rtap_tpu_torch.resilience.journal import TickJournal, parse_fsync
     from rtap_tpu_torch.service.checkpoint import peek_resume_ticks
@@ -130,10 +206,19 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     # --auto-register without reserved capacity can only claim rounding
     # pads: one extra group's worth by default
     reserve = args.reserve if args.reserve is not None else (gsize if args.auto_register else 0)
+    # the horizon sizes device state, so it is fixed when the groups are built
+    predict_k = (args.predict_horizon if args.predict_horizon is not None else 8) \
+        if args.predict else 0
+    try:
+        health, correlator, predictor = _model_side_trackers(args, cfg, ids, predict_k)
+    except ValueError as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
     # built before any listener: without a card (and without --device cpu)
     # this raises, and nothing is left to clean up
     reg = StreamGroupRegistry(cfg, group_size=gsize, device=args.device,
-                              threshold=args.threshold, debounce=args.debounce)
+                              threshold=args.threshold, debounce=args.debounce,
+                              health=args.health, predict=predict_k)
     for sid in ids:
         reg.add_stream(sid)
     reg.finalize(reserve=reserve)
@@ -164,6 +249,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                   f"truncation(s), {journal.truncated_bytes} bytes, "
                   f"{journal.dropped_segments} dropped segment(s)) — continuing "
                   "from the last valid record", file=sys.stderr)
+    # restart continuity: <alerts>.epoch counts this serve's starts
+    bump_run_epoch(args.alerts)
     # orderly shutdown: SIGTERM/SIGINT finish the current tick, save final
     # state and still print stats; a second signal force-exits
     stop = threading.Event()
@@ -194,7 +281,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                           auto_register=args.auto_register,
                           auto_release_after=args.auto_release_after,
                           micro_chunk=args.micro_chunk,
-                          alert_flush_every=args.alert_flush_every, journal=journal)
+                          alert_flush_every=args.alert_flush_every, journal=journal,
+                          health=health, correlator=correlator, predictor=predictor)
     finally:
         for sig, handler in prev.items():
             signal.signal(sig, handler)
@@ -306,6 +394,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeze", action="store_true",
                    help="inference-only serving: model state frozen, likelihood "
                         "adapts, the checkpoint dir is read-only")
+    p.add_argument("--health", action="store_true",
+                   help="model-health reducers: per-group segment-pool occupancy, "
+                        "permanence sketch, SDR sparsity, hit rate and score "
+                        "histogram each tick (reads only: scores and state are "
+                        "unchanged), folded into scorecards with score-drift "
+                        "detection; pool_saturated / sparsity_collapsed / "
+                        "score_drift events ride the alert stream")
+    p.add_argument("--health-occupancy-threshold", type=float, default=0.9,
+                   help="segment-pool mean occupancy at/above which a group raises "
+                        "pool_saturated (with --health)")
+    p.add_argument("--health-sparsity-min-frac", type=float, default=0.5,
+                   help="fraction of the expected active-column density (k/C) below "
+                        "which a live group raises sparsity_collapsed (with --health)")
+    p.add_argument("--health-drift-threshold", type=float, default=0.25,
+                   help="total-variation distance between the fast and slow EWMA "
+                        "score distributions at/above which a group raises "
+                        "score_drift (with --health)")
+    p.add_argument("--health-drift-min-ticks", type=int, default=120,
+                   help="scored ticks a group folds before the drift detector may fire")
+    p.add_argument("--predict", action="store_true",
+                   help="predictive horizon: each tick's predicted-active columns are "
+                        "scored against the input k ticks later (scores and state "
+                        "unchanged); sustained divergence pages a precursor event "
+                        "before the anomaly score crosses the threshold, and with "
+                        "--topology one predicted_incident with the predicted blast "
+                        "radius at the first node")
+    p.add_argument("--predict-horizon", type=int, default=None,
+                   help="prediction lead k in ticks (default 8, with --predict)")
+    p.add_argument("--predict-threshold", type=float, default=None,
+                   help="predictive-miss EWMA level at/above which a stream counts "
+                        "as diverging (default 0.35, with --predict)")
+    p.add_argument("--predict-min-ticks", type=int, default=None,
+                   help="consecutive diverging scored ticks before a precursor fires "
+                        "(default 12, with --predict)")
+    p.add_argument("--topology", default=None,
+                   help="topology-aware incident correlation: a JSON topology spec "
+                        "path ({'services': {...}, 'links': [...]}) or 'infer' (node/"
+                        "service from stream-name prefixes); alerts on adjacent nodes "
+                        "fold into cluster-level 'incident' events on the alert "
+                        "stream. Needs --alerts")
+    p.add_argument("--correlate-window", type=int, default=None,
+                   help="incident quiescence window in seconds of source timestamp "
+                        "(default 30; above the pipeline's alert staleness); needs "
+                        "--topology")
+    p.add_argument("--correlate-min-streams", type=int, default=None,
+                   help="distinct alerting streams a closed window needs to emit an "
+                        "incident (default 3); needs --topology")
     for flag, (takes_value, _where) in UNPORTED_SERVE_FLAGS.items():
         dest = "unported_" + flag[2:].replace("-", "_")
         if flag == "--aot-warmup":

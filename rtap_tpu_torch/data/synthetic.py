@@ -263,3 +263,142 @@ def cluster_streams(n_streams: int, length: int, seed: int = 0, **kw) -> list[La
     cfg = SyntheticStreamConfig(length=length, cadence_s=1.0, noise_phi=0.97, noise_scale=0.5,
                                 **kw)
     return generate_cluster((n_streams + 2) // 3, cfg=cfg, seed=seed)[:n_streams]
+
+
+@dataclass
+class TopologyWorkload:
+    """A seeded multi-service cluster with ONE cascading fault: the ground
+    truth of the cascade eval (``python -m rtap_tpu_torch.predict_eval``)."""
+
+    streams: list[LabeledStream]
+    #: the faulted service name
+    burst_service: str
+    #: nodes hit, in cascade order
+    burst_nodes: list[str]
+    #: tick index each node's burst begins (cascade: onset + j * lag)
+    burst_onsets: dict[str, int]
+    #: burst duration in ticks (per node)
+    burst_dur: int
+    #: the topology spec dict ({"services": ...}) matching the stream ids
+    spec: dict
+    #: origin node carrying the slow-drift precursor ramp (None: no ramp)
+    precursor_node: str | None = None
+    #: tick the origin node's ramp begins (its onset - precursor_ticks)
+    precursor_start: int | None = None
+
+
+def generate_topology_workload(
+    n_services: int = 3,
+    nodes_per_service: int = 3,
+    metrics: Sequence[str] = ("cpu", "mem"),
+    cfg: SyntheticStreamConfig | None = None,
+    seed: int = 0,
+    burst_at_frac: float = 0.75,
+    cascade_lag: int = 2,
+    burst_dur: int = 8,
+    burst_magnitude: float = 12.0,
+    precursor_ramp: float = 0.0,
+    precursor_ticks: int = 0,
+) -> TopologyWorkload:
+    """Seeded cascading-fault workload (the JAX package's generator, the
+    same draws and bytes): per-node
+    per-metric base signals (ids ``{svc}-{i:02d}.{metric}``, the
+    inference-friendly naming), plus ONE deterministic multi-node burst —
+    a seeded service is hit node by node (node j's burst begins
+    ``cascade_lag * j`` ticks after the first) across ALL its metrics,
+    the blast-radius shape exactly one cluster-level incident must
+    cover. All other services stay fault-free (the false-positive
+    control).
+
+    ``precursor_ramp`` > 0 (with ``precursor_ticks`` > 0) prepends a
+    slow linear drift to the ORIGIN node only — every metric climbs from
+    0 to ``precursor_ramp * sigma`` over the ``precursor_ticks`` ticks
+    ending at that node's burst onset (the cascade scenario: the
+    predictive horizon must page on the origin's drift BEFORE the second
+    node's step fault lands). The ramp is applied post-draw like the
+    burst itself, so enabling it never perturbs the RNG draw order."""
+    cfg = cfg or SyntheticStreamConfig(length=400, n_anomalies=0,
+                                      noise_phi=0.9, noise_scale=0.3)
+    if cfg.n_anomalies:
+        raise ValueError(
+            "generate_topology_workload owns its fault injection; pass a "
+            "cfg with n_anomalies=0")
+    if precursor_ramp < 0 or precursor_ticks < 0:
+        raise ValueError("precursor_ramp/precursor_ticks must be >= 0")
+    if (precursor_ramp > 0) != (precursor_ticks > 0):
+        raise ValueError(
+            "precursor_ramp and precursor_ticks arm the drift together: "
+            "set both > 0 (or neither)")
+    rng = _rng_for(seed, "topology-workload")
+    svc_names = [f"svc{chr(ord('a') + i)}" for i in range(n_services)]
+    burst_service = svc_names[int(rng.integers(n_services))]
+    onset0 = int(cfg.length * burst_at_frac)
+    if onset0 - precursor_ticks < 0:
+        # same loud-failure discipline as the cascade-fit check below: a
+        # truncated ramp would silently hand the eval a steeper (easier)
+        # drift than the caller asked for
+        raise ValueError(
+            f"precursor ramp does not fit: onset {onset0} needs "
+            f"{precursor_ticks} ramp ticks before it (lower "
+            f"precursor_ticks or raise burst_at_frac/length)")
+    last_onset = onset0 + cascade_lag * (nodes_per_service - 1)
+    if last_onset + 2 > cfg.length - 1:
+        # the last cascaded node must still get a real burst (>= 2 ticks
+        # before the final tick) — fail loudly, like generate_log_stream,
+        # instead of IndexError-ing on timestamps or silently emitting a
+        # burst-less "burst node" that wrecks the soak's blast-radius check
+        raise ValueError(
+            f"cascade does not fit: last node's onset {last_onset} needs "
+            f">= 2 burst ticks inside length {cfg.length} (lower "
+            f"burst_at_frac/cascade_lag/nodes_per_service or raise length)")
+    streams: list[LabeledStream] = []
+    burst_nodes: list[str] = []
+    burst_onsets: dict[str, int] = {}
+    spec: dict = {"services": {}}
+    for svc in svc_names:
+        nodes = [f"{svc}-{i:02d}" for i in range(nodes_per_service)]
+        spec["services"][svc] = nodes
+        for j, node in enumerate(nodes):
+            onset = onset0 + cascade_lag * j
+            if svc == burst_service:
+                burst_nodes.append(node)
+                burst_onsets[node] = onset
+            for m in metrics:
+                scfg = replace(cfg, metric=m, n_anomalies=0)
+                s = generate_stream(f"{node}.{m}", scfg, seed=seed)
+                if svc == burst_service:
+                    sigma = METRIC_PROFILES.get(
+                        m, METRIC_PROFILES["cpu"])[2] * cfg.noise_scale
+                    e = min(onset + burst_dur, cfg.length - 1)
+                    sig = s.values.astype(np.float64)
+                    sig[onset:e] += burst_magnitude * sigma
+                    if precursor_ticks and j == 0:
+                        # origin-node slow drift: 0 -> ramp*sigma over the
+                        # ticks ending at onset (endpoint excluded — the
+                        # step itself is the fault, the ramp its precursor)
+                        r0 = onset - precursor_ticks
+                        sig[r0:onset] += precursor_ramp * sigma * \
+                            np.linspace(0.0, 1.0, precursor_ticks,
+                                        endpoint=False)
+                    lo_c, hi_c = METRIC_PROFILES.get(
+                        m, METRIC_PROFILES["cpu"])[3]
+                    if lo_c is not None:
+                        sig = np.maximum(sig, lo_c)
+                    if hi_c is not None:
+                        sig = np.minimum(sig, hi_c)
+                    s.values = sig.astype(np.float32)
+                    margin = max(2, burst_dur // 2)
+                    win = (int(s.timestamps[max(0, onset - margin)]),
+                           int(s.timestamps[min(cfg.length - 1, e + margin)]))
+                    s.windows.append(win)
+                    s.events.append(FaultEvent(
+                        "cascade", int(s.timestamps[onset]),
+                        int(s.timestamps[e]), win))
+                streams.append(s)
+    return TopologyWorkload(
+        streams=streams, burst_service=burst_service,
+        burst_nodes=burst_nodes, burst_onsets=burst_onsets,
+        burst_dur=burst_dur, spec=spec,
+        precursor_node=burst_nodes[0] if precursor_ticks else None,
+        precursor_start=(burst_onsets[burst_nodes[0]] - precursor_ticks)
+        if precursor_ticks else None)

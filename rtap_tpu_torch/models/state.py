@@ -3,7 +3,7 @@
 :func:`init_state` and :func:`state_nbytes` are copies of the JAX package's
 ``models/state.py`` (same ``np.random.Philox`` draws, so the same seed gives
 the same bits), minus the forward-index leaves (the port has no forward
-index) and the predictive-horizon leaves (no predict reducer yet).
+index).
 
 Layout (single stream; stream groups add a leading G axis) — the public
 layout both packages share:
@@ -17,6 +17,9 @@ TM:  ``presyn`` i16/i32 [C, K, S, M] (-1 = empty), ``syn_perm`` [C, K, S, M],
      ``prev_winner`` bool [C, K], ``tm_iter`` i32 [], ``tm_overflow`` i32 [].
 Encoder: ``enc_offset`` f32 [F], ``enc_bound`` bool [F], ``enc_resolution``
      f32 [F] (+ ``enc_prev`` for composite delta fields).
+Predictor (only with a horizon k > 0, ops/predict.py): ``pred_ring`` bool
+     [k, C], ``pred_miss_ewma`` f32 [] (NaN until the first scored tick),
+     ``pred_tick0`` i32 [] (the tick the slot was (re)initialized).
 
 Permanences are stored in their domain's dtype (models/perm.py): f32, or
 uint16/uint8 quanta. The port keeps those storage dtypes on the device, so
@@ -44,9 +47,12 @@ def members_dtype(cfg: ModelConfig):
     return np.int16 if cfg.input_size <= (1 << 15) - 1 else np.int32
 
 
-def init_state(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
+def init_state(cfg: ModelConfig, seed: int = 0,
+               predict_horizon: int = 0) -> dict[str, np.ndarray]:
     """Build the full per-stream state dict (numpy, host side). Bit-identical
-    to the JAX package's ``init_state(cfg, seed, include_fwd=False)``."""
+    to the JAX package's ``init_state(cfg, seed, include_fwd=False,
+    predict_horizon=predict_horizon)``; with a horizon of 0 the predictor
+    leaves are absent."""
     rng = np.random.Generator(np.random.Philox(key=(seed, 0xC0FFEE)))
     C, n_in = cfg.sp.columns, cfg.input_size
     K, S, M = cfg.tm.cells_per_column, cfg.tm.max_segments_per_cell, cfg.tm.max_synapses_per_segment
@@ -98,6 +104,11 @@ def init_state(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
         "enc_resolution": np.asarray(cfg.field_resolutions(), np.float32),
         **({"enc_prev": np.full(cfg.n_fields, np.nan, np.float32)}
            if cfg.composite is not None and cfg.composite.has_delta else {}),
+        **({
+            "pred_ring": np.zeros((predict_horizon, C), bool),
+            "pred_miss_ewma": np.float32(np.nan),
+            "pred_tick0": np.int32(0),
+        } if predict_horizon else {}),
         **(
             {
                 "cls_w": np.zeros((C * K, cfg.classifier.buckets), np.float32),
@@ -110,10 +121,11 @@ def init_state(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
     }
 
 
-def state_nbytes(cfg: ModelConfig, seed: int = 0) -> dict[str, int]:
+def state_nbytes(cfg: ModelConfig, seed: int = 0,
+                 predict_horizon: int = 0) -> dict[str, int]:
     """Per-stream state byte budget: sums the actual arrays of one stream's
     state. Returns {"total": bytes, "<key>": bytes, ...} sorted descending."""
-    st = init_state(cfg, seed)
+    st = init_state(cfg, seed, predict_horizon)
     per = {k: int(np.asarray(v).nbytes) for k, v in st.items()}
     out = {"total": sum(per.values())}
     out.update(sorted(per.items(), key=lambda kv: -kv[1]))

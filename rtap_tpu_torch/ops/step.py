@@ -10,6 +10,13 @@ group's lockstep ``tm_iter``) becomes a host-side branch on the group's own
 tick counter: the caller passes ``tick0`` (the tm_iter of stream 0 at the
 start of the chunk, which advances by one per tick), so no tick reads the
 device. Without it, :func:`chunk_step` reads it once per chunk.
+
+The static ``health`` and ``predict`` flags add the model-side reducers
+(ops/health.py, ops/predict.py) after each tick's step, as the JAX
+package's ``_tick`` does: ``predict`` updates its own state leaves first,
+``health`` reads the state after that, and the predict leaf wraps
+outermost, ``(state, (inner, predict_leaf))`` with ``inner`` what health
+produced. With both off the step is unchanged.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import torch
 
 from rtap_tpu_torch.config import ModelConfig
 from rtap_tpu_torch.ops.encoders import bind_offsets, encode
+from rtap_tpu_torch.ops.health import health_reduce
+from rtap_tpu_torch.ops.predict import predict_update
 from rtap_tpu_torch.ops.sp import sp_step
 from rtap_tpu_torch.ops.tm import learn_pass_inputs, tm_step
 
@@ -69,12 +78,21 @@ def _step_impl(state: dict, values: torch.Tensor, ts_unix: torch.Tensor,
 
 
 def _tick(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelConfig,
-          learn: bool, tick: int | None):
+          learn: bool, tick: int | None, health: bool = False, predict: bool = False):
     """One group tick honoring cfg's learning cadence; `tick` is stream 0's
-    tm_iter before the tick (completed steps, lockstep across the group)."""
+    tm_iter before the tick (completed steps, lockstep across the group).
+    With `health` the out becomes (raw, health_leaf); with `predict` the
+    predict leaf wraps outermost."""
     if learn and cfg.cadence_active:
         learn = bool(cfg.learns_on(tick))
-    return _step_impl(state, values, ts_unix, cfg, learn)
+    state, out = _step_impl(state, values, ts_unix, cfg, learn)
+    if predict:
+        state, pleaf = predict_update(state, values, cfg, tick)
+    if health:
+        out = (out, health_reduce(state, out, values, cfg))
+    if predict:
+        out = (out, pleaf)
+    return state, out
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -83,31 +101,56 @@ def _check_supported(cfg: ModelConfig) -> None:
             "the SDR classifier is not ported yet (ROADMAP.md, port queue A)")
 
 
+def _needs_tick(cfg: ModelConfig, learn: bool, predict: bool) -> bool:
+    return (learn and cfg.cadence_active) or predict
+
+
 def group_step(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelConfig,
-               learn: bool = True, tick: int | None = None):
+               learn: bool = True, tick: int | None = None, health: bool = False,
+               predict: bool = False):
     """One tick for a group: `values` [G, n_fields] f32, `ts_unix` [G] ->
-    (state, raw [G] f32)."""
+    (state, raw [G] f32), the out wrapped by the reducers' leaves as in
+    :func:`_tick`."""
     _check_supported(cfg)
-    if learn and cfg.cadence_active and tick is None:
+    if tick is None and _needs_tick(cfg, learn, predict):
         tick = int(state["tm_iter"].reshape(-1)[0])
-    return _tick(state, values, ts_unix, cfg, learn, tick)
+    return _tick(state, values, ts_unix, cfg, learn, tick, health, predict)
+
+
+def _stack(leaves: list[dict]) -> dict:
+    return {k: torch.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
 
 
 def chunk_step(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelConfig,
-               learn: bool = True, tick0: int | None = None):
+               learn: bool = True, tick0: int | None = None, health: bool = False,
+               predict: bool = False):
     """T ticks for a group: `values` [T, G, n_fields] f32, `ts_unix` [T, G]
     -> (state, raw [T, G] f32). `tick0` is stream 0's tm_iter at the start
     of the chunk (read from the device once when not given and a cadence
-    is active)."""
+    or the predictor needs it). With `health`/`predict` the out is wrapped
+    as in :func:`_tick`, each leaf stacked over the T ticks."""
     _check_supported(cfg)
     T, G = values.shape[:2]
-    if learn and cfg.cadence_active and tick0 is None:
+    if tick0 is None and _needs_tick(cfg, learn, predict):
         tick0 = int(state["tm_iter"].reshape(-1)[0])
     raw = torch.empty((T, G), dtype=torch.float32, device=values.device)
+    hleaves, pleaves = [], []
     for t in range(T):
         tick = None if tick0 is None else tick0 + t
-        state, raw[t] = _tick(state, values[t], ts_unix[t], cfg, learn, tick)
-    return state, raw
+        state, out = _tick(state, values[t], ts_unix[t], cfg, learn, tick, health, predict)
+        if predict:
+            out, pleaf = out
+            pleaves.append(pleaf)
+        if health:
+            out, hleaf = out
+            hleaves.append(hleaf)
+        raw[t] = out
+    out = raw
+    if health:
+        out = (out, _stack(hleaves))
+    if predict:
+        out = (out, _stack(pleaves))
+    return state, out
 
 
 def replicate_state_device(state: dict, group_size: int, device) -> dict:

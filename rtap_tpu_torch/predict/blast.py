@@ -1,0 +1,148 @@
+"""Precursor x topology fusion -> ``predicted_incident``.
+
+The port's copy of the JAX package's ``predict/blast.py``.
+
+A cascading fault — database brown-out rolling into its web tier — is
+N per-stream precursors spread over the lag between nodes. Paging N
+times defeats the point of predicting; paging after the Nth defeats the
+LEAD. :class:`BlastFuser` fuses precursors with the correlate/
+:class:`~rtap_tpu_torch.correlate.topology.TopologyMap`: the FIRST precursor
+in a topology cluster emits ONE ``predicted_incident`` event carrying
+the cluster's full node set as the *predicted* blast radius — the
+operator is paged at the first node, told which nodes the fault will
+reach, before the downstream nodes fall over (the cascade eval,
+``python -m rtap_tpu_torch.predict_eval``, scores exactly this).
+
+Later precursors inside the quiescence window attach to the open
+incident silently (their per-stream ``precursor`` lines already tell
+that story); the window closes after ``window_ticks`` without a new
+member, re-arming the cluster. All decisions are pure functions of
+(stream, tick) — a journal replay reproduces every incident id
+bit-for-bit, which is what makes resume suppression work.
+
+The fuser does not emit: :meth:`precursor` RETURNS the incident event
+(or None) and the owning
+:class:`~rtap_tpu_torch.predict.horizon.PredictTracker` pushes it through its
+own sink/flight/suppression path — one emission discipline, not two.
+
+The predicted radius is every node DECLARED in the cluster (spec
+topologies) plus every node actually seen streaming into it (covers
+``--topology infer``, where nothing is declared up front); `seed_streams`
+pre-registers the fleet's ids at construction so the radius is complete
+from the first page, not grown as precursors arrive.
+"""
+
+from __future__ import annotations
+
+__all__ = ["BlastFuser"]
+
+
+class _Cluster:
+    __slots__ = ("first_tick", "last_tick", "first_stream", "streams",
+                 "precursors", "incident_id")
+
+    def __init__(self, tick: int, stream: str):
+        self.first_tick = int(tick)
+        self.last_tick = int(tick)
+        self.first_stream = stream
+        self.streams: set[str] = {stream}
+        self.precursors: list[str] = []
+        self.incident_id = ""
+
+
+class BlastFuser:
+    """Fuse per-stream precursors into one page per topology cluster.
+
+    `topology` is a correlate/ TopologyMap (spec or infer); `window_ticks`
+    the quiescence horizon — a cluster with no new precursor for that
+    many ticks closes its incident and may page again; `seed_streams`
+    optionally pre-registers the fleet's stream ids so inferred
+    clusters know their full node membership before the first page.
+    """
+
+    def __init__(self, topology, window_ticks: int = 256,
+                 seed_streams=None):
+        if window_ticks < 1:
+            raise ValueError(
+                f"window_ticks must be >= 1; got {window_ticks}")
+        self.topology = topology
+        self.window_ticks = int(window_ticks)
+        #: cluster key -> known member nodes (declared + seen streaming)
+        self._nodes: dict[str, set[str]] = {}
+        for node in getattr(topology, "services", {}):
+            self._nodes.setdefault(
+                topology._component_of(topology.service_of(node)),
+                set()).add(node)
+        if seed_streams is not None:
+            self.observe_streams(seed_streams)
+        self._open: dict[str, _Cluster] = {}
+        self.incidents_total = 0
+
+    def observe_streams(self, stream_ids) -> None:
+        """Register streams' nodes into their clusters' known radius
+        (idempotent; live_loop calls this on registry version changes so
+        claimed streams join the predicted radius too)."""
+        for sid in stream_ids:
+            sid = str(sid)
+            if sid.startswith("__pad"):
+                continue
+            node = self.topology.node_of(sid)
+            self._nodes.setdefault(
+                self.topology.cluster_of(sid), set()).add(node)
+
+    def precursor(self, stream: str, tick: int, ev: dict) -> dict | None:
+        """Fold one precursor -> a ``predicted_incident`` event for the
+        FIRST precursor of a (re)opened cluster window, else None."""
+        cluster = self.topology.cluster_of(stream)
+        self._nodes.setdefault(cluster, set()).add(
+            self.topology.node_of(stream))
+        w = self._open.get(cluster)
+        if w is not None and tick - w.last_tick > self.window_ticks:
+            del self._open[cluster]
+            w = None
+        if w is not None:
+            # attach silently: the cluster already paged this window
+            w.last_tick = max(w.last_tick, int(tick))
+            w.streams.add(stream)
+            w.precursors.append(str(ev.get("alert_id")))
+            return None
+        w = self._open[cluster] = _Cluster(tick, stream)
+        w.precursors.append(str(ev.get("alert_id")))
+        w.incident_id = f"predicted_incident:{cluster}:{int(tick)}"
+        self.incidents_total += 1
+        node = self.topology.node_of(stream)
+        return {
+            "event": "predicted_incident",
+            "tick": int(tick),
+            "cluster": cluster,
+            "first_stream": stream,
+            "first_node": node,
+            "alert_id": w.incident_id,
+            # the PREDICTED blast radius: every node this cluster can
+            # reach, named at the first page — not grown after the fact
+            "blast_radius": sorted(self._nodes.get(cluster, {node})),
+            "precursors": list(w.precursors),
+            "horizon_ticks": ev.get("horizon_ticks"),
+            "predicted_lead_ticks": ev.get("predicted_lead_ticks"),
+        }
+
+    def snapshot(self) -> dict:
+        """Embedded under ``blast`` in the /predict body."""
+        open_windows = [
+            {
+                "cluster": c,
+                "incident_id": w.incident_id,
+                "first_tick": w.first_tick,
+                "last_tick": w.last_tick,
+                "first_stream": w.first_stream,
+                "streams": len(w.streams),
+                "blast_radius": sorted(self._nodes.get(c, set())),
+            }
+            for c, w in sorted(list(self._open.items()))
+        ]
+        return {
+            "window_ticks": self.window_ticks,
+            "clusters_known": len(self._nodes),
+            "incidents_total": self.incidents_total,
+            "open": open_windows,
+        }

@@ -4,9 +4,9 @@ The port's copy of the JAX package's ``service/alerts.py``: one JSONL
 object per alert, byte for byte the JAX package's lines
 (:func:`format_alert_line`), structured events on the same stream, the
 alert-delivery cursor and resume suppression that make alerts exactly-once
-across a crash, and the "anomaly-scored metrics/sec" counter. Alert
-attribution, leader fencing, incident correlation and latency tracking
-hooks are not ported.
+across a crash, the incident correlator's fold of every delivered alert,
+and the "anomaly-scored metrics/sec" counter. Alert attribution, leader
+fencing and latency tracking hooks are not ported.
 """
 
 from __future__ import annotations
@@ -88,12 +88,19 @@ class AlertWriter:
     ids already on disk from a crashed run are counted and NOT re-written
     during journal replay. Opening an existing sink whose last line was
     torn first heals it with a newline.
+
+    `correlator` (correlate.IncidentCorrelator): every alert batch that
+    reached the sink, suppressed lines left out, also folds into the
+    correlator's windows, with the sink offset before the batch as its
+    crash-resume anchor — so the fold mirrors the disk exactly once.
     """
 
-    def __init__(self, path: str | None = None, flush_every: int = 1, breaker=None):
+    def __init__(self, path: str | None = None, flush_every: int = 1, breaker=None,
+                 correlator=None):
         if flush_every < 1:
             raise ValueError(f"flush_every must be >= 1; got {flush_every}")
         self.path = path
+        self._correlator = correlator
         self._offset = 0  # bytes handed to the sink (the alert cursor)
         self.torn_heals = 0
         if path:
@@ -225,6 +232,7 @@ class AlertWriter:
             values = np.asarray(values)
             with_id = group is not None and tick is not None
             lines = []
+            folds = []
             for g in idx:
                 aid = f"{group}:{stream_ids[g]}:{int(tick)}" if with_id else None
                 if aid is not None and self._suppress and aid in self._suppress:
@@ -235,10 +243,17 @@ class AlertWriter:
                     suppressed_this += 1
                     self._obs_suppressed.inc()
                     continue
+                if self._correlator is not None:
+                    folds.append((aid, stream_ids[g], int(ts[g])))
                 lines.append(format_alert_line(
                     aid, stream_ids[g], int(ts[g]), values[g],
                     float(raw[g]), float(log_likelihood[g])))
-            self._safe_write(lines)
+            off0 = self._offset
+            # a dropped batch must not seed windows with ids that exist
+            # nowhere on the stream: the resume re-fold reads the disk
+            if self._safe_write(lines):
+                for aid, sid, tsi in folds:
+                    self._correlator.observe_alert(aid, sid, tsi, sink_offset=off0)
         emitted = int(idx.size) - suppressed_this
         if emitted:
             self._obs_alerts.inc(emitted)
@@ -299,6 +314,23 @@ def scan_alert_ids(path: str, offset: int = 0) -> set[str]:
     ids: set[str] = set()
     for kind, d in iter_alert_records(path, offset):
         if kind != "alert":
+            continue
+        aid = d.get("alert_id")
+        if aid:
+            ids.add(aid)
+    return ids
+
+
+def scan_event_ids(path: str, offset: int = 0) -> set[str]:
+    """Event-line alert ids already on disk at/after byte `offset` — the
+    resume suppression set for the id-carrying ``precursor`` and
+    ``predicted_incident`` lines, whose ids are pure functions of (stream,
+    group tick), so a journal replay reproduces them. Same walker and
+    cursor as :func:`scan_alert_ids`; alert records and other events are
+    skipped."""
+    ids: set[str] = set()
+    for kind, d in iter_alert_records(path, offset):
+        if kind != "event" or d.get("event") not in ("precursor", "predicted_incident"):
             continue
         aid = d.get("alert_id")
         if aid:

@@ -81,7 +81,7 @@ def save_group(grp: StreamGroup, path: str | Path,
         "ticks": grp.ticks,
         "threshold": grp.threshold,
         "debounce": grp.debounce,
-        "predict": 0,
+        "predict": grp.predict,
         "n_live": grp.n_live,
         "sharded": False,
         "config": grp.cfg.to_dict(),
@@ -181,7 +181,8 @@ def load_group(path: str | Path, device=None) -> StreamGroup:
     cfg = ModelConfig.from_dict(meta["config"])
     tree = _read_tree(path / "state")
     grp = StreamGroup(cfg, meta["stream_ids"], device=device, threshold=meta["threshold"],
-                      debounce=int(meta.get("debounce", 1)))
+                      debounce=int(meta.get("debounce", 1)),
+                      predict=int(meta.get("predict", 0)))
     model = tree["model"]
     grp.state = state_from_numpy({k: model[k] for k in grp.state}, grp.device)
     grp._tick0 = int(np.asarray(model["tm_iter"]).reshape(-1)[0])
@@ -221,7 +222,8 @@ def validate_resume(resumed: StreamGroup, ck_path, grp: StreamGroup,
                     allow_claimed_extras: bool = False) -> None:
     """The resume-safety gate shared by replay_streams and live_loop: the
     checkpoint must match what this run would have built (slots, stream
-    ids, config, threshold, debounce); mismatches are errors.
+    ids, config, threshold, debounce, predict horizon); mismatches are
+    errors.
 
     `allow_claimed_extras` (serve --auto-register or --freeze): slots this
     run built as pads may hold real streams in the checkpoint — they were
@@ -253,6 +255,9 @@ def validate_resume(resumed: StreamGroup, ck_path, grp: StreamGroup,
             ("config", resumed.cfg, grp.cfg),
             ("threshold", resumed.threshold, grp.threshold),
             ("debounce", resumed.debounce, grp.debounce),
+            # the predictor leaves live inside the state tree: resuming
+            # across a horizon change would need a migration, not a blend
+            ("predict", resumed.predict, grp.predict),
         )
         if a != b
     ]

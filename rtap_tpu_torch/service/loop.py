@@ -7,10 +7,15 @@ its cadence, and sleeps off the rest of the cadence budget. The same feed
 and seed give the JAX package's alert lines byte for byte and its state
 leaves bit for bit.
 
+The model-side trackers ride the loop as in the JAX package: the health
+tracker and the precursor tracker fold each collected chunk's reducer
+leaves, and the incident correlator folds every delivered alert; their
+events go onto the alert stream.
+
 Not ported (ROADMAP.md queue A): quarantine and auto-restore, degradation,
 chaos, leases and replication, dispatch threads, chunk stagger, AOT
-warm-up, tracing, flight recorder, health/predict reducers, incident
-correlation, latency/SLO tracking, fleet publishing, binary ingest. Here a
+warm-up, tracing, flight recorder, latency/SLO tracking, fleet publishing,
+binary ingest. Here a
 group whose dispatch or collect raises stops the loop: the exception
 propagates to the caller.
 """
@@ -31,7 +36,12 @@ import rtap_tpu_torch.ops.tm_learn as tm_learn
 from rtap_tpu_torch.obs import TickWatchdog, get_registry
 from rtap_tpu_torch.resilience.journal import JournaledFrames
 from rtap_tpu_torch.resilience.policies import CircuitBreaker
-from rtap_tpu_torch.service.alerts import AlertWriter, ThroughputCounter, scan_alert_ids
+from rtap_tpu_torch.service.alerts import (
+    AlertWriter,
+    ThroughputCounter,
+    scan_alert_ids,
+    scan_event_ids,
+)
 from rtap_tpu_torch.service.checkpoint import (
     checkpoint_exists,
     load_group,
@@ -44,7 +54,7 @@ from rtap_tpu_torch.service.registry import (
     StreamGroupRegistry,
     _Slot,
 )
-from rtap_tpu_torch.service.shardpath import group_checkpoint_path
+from rtap_tpu_torch.service.shardpath import alert_sidecar_path, group_checkpoint_path
 
 #: bound on remembered rejected-id names under auto_register (an
 #: id-spraying producer must not grow a long-lived server's memory)
@@ -80,6 +90,9 @@ def live_loop(
     micro_chunk: int = 1,
     alert_flush_every: int = 1,
     journal=None,
+    health=None,
+    correlator=None,
+    predictor=None,
 ) -> dict:
     """Paced live scoring: each tick, poll `source(tick) -> (values, ts)`,
     score the group(s), emit alerts, sleep off the rest of the cadence
@@ -119,6 +132,26 @@ def live_loop(
     disk past the checkpoints' alert cursor suppressed — exactly-once
     across a crash. After each emitted chunk the journal records the alert
     cursor; after each save round it is compacted.
+
+    `health` (obs.HealthTracker, serve --health; the groups built with
+    ``health=True``): each collected chunk's health leaves fold into the
+    group's scorecard; ``pool_saturated`` / ``sparsity_collapsed`` /
+    ``score_drift`` events go onto the alert stream and
+    ``stats["health"]`` holds the rollup.
+
+    `predictor` (predict.PredictTracker, serve --predict; the groups built
+    with ``predict=k``): each collected chunk's predict leaves fold into
+    per-stream divergence trajectories, keyed by the GROUP tick so the
+    ``precursor`` ids reproduce across a restart; with a BlastFuser the
+    first precursor in a topology cluster pages one ``predicted_incident``.
+    On a journal replay the event ids already on disk are suppressed.
+    ``stats["predict"]`` holds the rollup.
+
+    `correlator` (correlate.IncidentCorrelator, serve --topology): every
+    delivered alert folds into its topology cluster's window, and quiesced
+    windows close into ``incident`` events on the source clock. On entry
+    it re-folds the alert tail from its ``<alerts>.corr`` sidecar floor, so
+    incidents are exactly-once across a crash. ``stats["incidents"]``.
     """
     if pipeline_depth < 1:
         raise ValueError(f"pipeline_depth must be >= 1; got {pipeline_depth}")
@@ -157,6 +190,8 @@ def live_loop(
             # (auto_register) or serves frozen (reading, not claiming)
             validate_resume(resumed, ck_path, grp,
                             allow_claimed_extras=auto_register or not learn)
+            # the health flag is run config, not checkpoint state
+            resumed.health = grp.health
             groups[gi] = resumed
             for slot in reg._slots.values():
                 if slot.group is grp:
@@ -202,6 +237,9 @@ def live_loop(
             slots = g.live_slots()
             maps.append((slots, [g.stream_ids[i] for i in slots], off))
             off += len(slots)
+        if predictor is not None and predictor.blast is not None:
+            # claimed streams join their cluster's predicted blast radius
+            predictor.blast.observe_streams(sid for _s, ids, _o in maps for sid in ids)
         return maps, off
 
     routing, n_expected = _build_routing()
@@ -237,7 +275,28 @@ def live_loop(
     auto_released = 0
     silent_ticks: dict = {}  # sid -> consecutive all-NaN ticks
     release_pending: set = set()
-    writer = AlertWriter(alert_path, flush_every=alert_flush_every)
+    writer = AlertWriter(alert_path, flush_every=alert_flush_every, correlator=correlator)
+    correlator_resume = None
+    if correlator is not None:
+        if correlator.sink is None:
+            correlator.sink = writer.emit_event
+        if alert_path is not None:
+            # re-fold the sink tail before any replay or live emission, from
+            # the sidecar floor (a checkpoint's cursor can sit past an open
+            # window's earlier members): delivered alerts re-enter their
+            # windows, emitted incident ids seed the dedupe set, incidents
+            # that closed without their line landing re-emit
+            if correlator.sidecar_path is None:
+                correlator.sidecar_path = alert_sidecar_path(alert_path, "corr")
+            known = [g.resume_alerts_offset for g in groups
+                     if g.resume_alerts_offset is not None]
+            correlator_resume = correlator.resume_from(
+                alert_path, correlator.resume_scan_offset(min(known) if known else 0))
+    for tracker in (health, predictor):
+        # incidents and precursors ride the alert stream; the flight
+        # recorder is not ported, so its dump requests stay unwired
+        if tracker is not None and tracker.sink is None:
+            tracker.sink = writer.emit_event
     counter = ThroughputCounter()
     group_scored = [0] * len(groups)
 
@@ -320,6 +379,7 @@ def live_loop(
                 counter.add(n)
                 scored += n
             group_scored[gi] += len(ts_rows) * n
+            _fold_trackers(gi, groups[gi], slots, ids, cur_tick)
         obs_scored.inc(scored)
         if journal is not None:
             # the alert-delivery cursor: alerts through this tick sit in the
@@ -327,6 +387,18 @@ def live_loop(
             writer.flush_sink()
             journal.append_cursor(journal_base + cur_tick, writer.sink_offset())
         phase_s["emit"] += time.perf_counter() - t1
+
+    def _fold_trackers(gi, grp, slots, ids, health_tick):
+        """Fold a collected chunk's reducer leaves. The health tick only
+        throttles dumps; the predictor keys on the GROUP tick (the chunk's
+        last row), which a restart's journal replay reproduces."""
+        if health is not None and grp.last_health is not None:
+            health.fold(gi, grp.last_health, tick=health_tick)
+        if predictor is not None and grp.last_predict is not None:
+            id_by_slot = [None] * grp.G
+            for s, sid in zip(slots, ids):
+                id_by_slot[s] = sid
+            predictor.fold(gi, grp.last_predict, tick=grp.ticks - 1, ids=id_by_slot)
 
     # ---- journal recovery + replay: recovered rows past each group's
     # checkpoint go through the normal dispatch/collect path (m = 1
@@ -352,6 +424,12 @@ def live_loop(
                               if g.resume_alerts_offset is not None]
                 writer.arm_suppression(scan_alert_ids(
                     alert_path, min(known_offs) if known_offs else 0))
+                if predictor is not None:
+                    # precursor / predicted_incident ids are functions of
+                    # (stream, group tick): the replay reproduces them, and
+                    # the ones already on disk must not page twice
+                    predictor.arm_suppression(scan_event_ids(
+                        alert_path, min(known_offs) if known_offs else 0))
             obs_jr = obs.counter(
                 "rtap_obs_journal_replayed_ticks_total",
                 "journaled ticks replayed through the scoring path on resume")
@@ -383,6 +461,9 @@ def live_loop(
                     t = np.full((1, grp.G), int(jts), np.int64)
                     r_raw, r_ll, r_al = grp.collect_chunk(grp.dispatch_chunk(v, t, learn=learn))
                     gpos[gi] += 1
+                    # catch-up ticks warm the trackers too (health at tick 0,
+                    # like every replay-time event), before the row's alerts
+                    _fold_trackers(gi, grp, slots, g_ids, 0)
                     n = len(slots)
                     writer.emit_batch(g_ids, np.full(n, int(jts)), jvals[off:off + n],
                                       r_raw[0, slots], r_ll[0, slots], r_al[0, slots],
@@ -390,6 +471,10 @@ def live_loop(
                     counter.add(n)
                     obs_scored.inc(n)
                 obs_jr.inc()
+                if correlator is not None:
+                    # the correlation clock advances on the replayed rows'
+                    # own timestamps: every close reproduces the live run's
+                    correlator.on_tick(int(jts))
                 last_ts_seen = int(jts) if last_ts_seen is None else max(last_ts_seen, int(jts))
             journal_replay["replayed_ticks"] = len(jrows) - journal_replay["skipped_rows"]
             journal_replay["replay_seconds"] = round(time.perf_counter() - t_jr0, 4)
@@ -558,6 +643,11 @@ def live_loop(
         chunk_buf.append((values.copy() if pipeline_depth > 1 or micro_chunk > 1 else values, ts))
         if len(chunk_buf) >= micro_chunk or k + 1 == n_ticks:
             _flush()
+        if correlator is not None:
+            # after this tick's emission: close quiesced windows on the
+            # source clock (alerts lagging in the pipeline carry their own
+            # older ts; --correlate-window must exceed that staleness)
+            correlator.on_tick(ts, tick=k, sink_offset=writer.sink_offset())
         ticks_run = k + 1
         if learn and checkpoint_every and checkpoint_dir and not chunk_buf \
                 and ticks_run - last_saved >= checkpoint_every:
@@ -652,6 +742,14 @@ def live_loop(
                                                         * 1e3, 3)}
     # kernel capacity overflow (col_cap / learn_cap): nonzero means some
     # stream exceeded a static bound and deviates from the reference
+    if health is not None:
+        stats["health"] = health.stats()
+    if predictor is not None:
+        stats["predict"] = predictor.stats()
+    if correlator is not None:
+        stats["incidents"] = correlator.stats()
+        if correlator_resume is not None:
+            stats["incidents"]["resume"] = correlator_resume
     stats["tm_overflow_total"] = sum(g.overflow_total() for g in groups)
     # TM learning-kernel launches in this call (CPU groups run the plain
     # version and launch nothing)

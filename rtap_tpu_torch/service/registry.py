@@ -5,8 +5,16 @@ fixed-capacity groups, every stream of a group shares one batched step
 (ops/step.chunk_step), and the host keeps the likelihood and the debounced
 alerts. The device argument takes the place of the JAX package's
 ``backend``: ``cuda`` by default, ``"cpu"`` for the plain PyTorch path. The
-mesh, health and predict arguments are not ported yet; passing them
-raises. Checkpoints are service/checkpoint.py's.
+mesh argument is not ported yet; passing it raises. Checkpoints are
+service/checkpoint.py's.
+
+``health=True`` makes every dispatched chunk also return the per-group
+health leaf (ops/health.py) and ``predict=k`` > 0 arms the predictive-
+horizon reducer at horizon k (ops/predict.py; the state gains the
+predictor leaves). :meth:`StreamGroup.collect_chunk` leaves the chunk's
+numpy leaves, with a leading tick axis, in ``last_health`` and
+``last_predict`` for the host trackers. Model state and scores are the same
+with either on or off.
 """
 
 from __future__ import annotations
@@ -36,12 +44,11 @@ class TickResult:
 PAD_PREFIX = "__pad"
 
 
-def _refuse_unported(**opts) -> None:
-    for name, value in opts.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}= is not ported to rtap_tpu_torch yet (ROADMAP.md, port "
-                "queue A); use the JAX package for it")
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported to rtap_tpu_torch yet (ROADMAP.md, port "
+            "queue A); use the JAX package for it")
 
 
 class StreamGroup:
@@ -56,9 +63,11 @@ class StreamGroup:
     def __init__(self, cfg: ModelConfig, stream_ids: list[str], seed: int = 0,
                  device=None, threshold: float = 0.5, debounce: int = 1,
                  mesh=None, health: bool = False, predict: int = 0):
-        _refuse_unported(mesh=mesh is not None, health=health, predict=predict)
+        _refuse_mesh(mesh)
         if debounce < 1:
             raise ValueError(f"debounce must be >= 1, got {debounce}")
+        if predict < 0:
+            raise ValueError(f"predict horizon must be >= 0, got {predict}")
         if cfg.classifier.enabled:
             raise NotImplementedError(
                 "the SDR classifier is not ported yet (ROADMAP.md, port queue A)")
@@ -72,12 +81,18 @@ class StreamGroup:
         self.seed = seed
         self.threshold = threshold
         self.debounce = int(debounce)
+        self.health = bool(health)
+        self.predict = int(predict)  # horizon k; 0 = predictor off
+        # the last collected chunk's reducer leaves [T, ...] (numpy)
+        self.last_health: dict | None = None
+        self.last_predict: dict | None = None
         self._alert_run = np.zeros(self.G, np.int64)
         self.likelihood = BatchAnomalyLikelihood(cfg.likelihood, self.G)
         self.ticks = 0
         self._seq = 0
         self._collected = 0
-        self.state = replicate_state_device(init_state(cfg, seed), self.G, self.device)
+        self.state = replicate_state_device(init_state(cfg, seed, self.predict), self.G,
+                                            self.device)
         # host mirror of stream 0's tm_iter, the lockstep clock the learning
         # cadence reads: advanced per dispatched tick, reset when slot 0 is
         # re-initialized, so no tick reads it back from the device
@@ -129,7 +144,11 @@ class StreamGroup:
         return slot
 
     def _reset_slot_state(self, slot: int) -> None:
-        fresh = init_state(self.cfg, self.seed)
+        fresh = init_state(self.cfg, self.seed, self.predict)
+        if self.predict:
+            # the claimed slot's predictor warm-up restarts now: scoring a
+            # real tick against its zeroed ring would fake a divergence
+            fresh["pred_tick0"] = np.int32(self.ticks)
         self.state = set_state_row(self.state, fresh, slot)
         if slot == 0:
             self._tick0 = int(fresh["tm_iter"])
@@ -168,22 +187,29 @@ class StreamGroup:
         if values.ndim == 2:
             values = values[..., None]
         T = values.shape[0]
-        self.state, raw = chunk_step(
+        self.state, out = chunk_step(
             self.state, self._to_device(values), self._to_device(np.asarray(ts, np.int32)),
-            self.cfg, learn=learn, tick0=self._tick0)
+            self.cfg, learn=learn, tick0=self._tick0, health=self.health,
+            predict=bool(self.predict))
+        leaves = {"health": None, "predict": None}
+        if self.predict:  # wraps outermost (ops/step.py)
+            out, leaves["predict"] = out
+        if self.health:
+            out, leaves["health"] = out
+        leaves["raw"] = out
         done = None
         if self.device.type == "cuda":
-            # the scores' copy to pinned host memory is queued right behind
-            # this chunk, with an event: collecting it later waits for THIS
-            # chunk only, not for chunks dispatched after it (a .cpu() at
-            # collect time would queue behind those and overlap nothing)
-            host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
-            host.copy_(raw, non_blocking=True)
-            raw, done = host, torch.cuda.Event()
+            # the scores' and leaves' copies to pinned host memory are
+            # queued right behind this chunk, with an event: collecting it
+            # later waits for THIS chunk only, not for chunks dispatched
+            # after it (a .cpu() at collect time would queue behind those
+            # and overlap nothing)
+            leaves = {k: v if v is None else _pinned_copy(v) for k, v in leaves.items()}
+            done = torch.cuda.Event()
             done.record()
         self._tick0 += T
         self._seq += 1
-        return {"raw": raw, "done": done, "T": T, "seq": self._seq}
+        return {**leaves, "done": done, "T": T, "seq": self._seq}
 
     def collect_chunk(self, handle: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Block on a dispatched chunk -> (raw [T, G], log_likelihood [T, G],
@@ -195,6 +221,10 @@ class StreamGroup:
         if handle["done"] is not None:
             handle["done"].synchronize()
         raw = handle["raw"].numpy()
+        if handle["health"] is not None:
+            self.last_health = {k: v.numpy() for k, v in handle["health"].items()}
+        if handle["predict"] is not None:
+            self.last_predict = {k: v.numpy() for k, v in handle["predict"].items()}
         self._collected = handle["seq"]
         T = handle["T"]
         self.ticks += T
@@ -216,6 +246,16 @@ class StreamGroup:
     def overflow_total(self) -> int:
         """Sum of the per-stream kernel capacity-overflow counters."""
         return int(self.state["tm_overflow"].sum())
+
+
+def _pinned_copy(x):
+    """A tensor, or a dict of them, copied into pinned host memory behind the
+    work already queued (non-blocking)."""
+    if isinstance(x, dict):
+        return {k: _pinned_copy(v) for k, v in x.items()}
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host
 
 
 @dataclass(frozen=True)
@@ -242,8 +282,10 @@ class StreamGroupRegistry:
     def __init__(self, cfg: ModelConfig, group_size: int = 1024, device=None, seed: int = 0,
                  threshold: float = 0.5, debounce: int = 1,
                  mesh=None, health: bool = False, predict: int = 0):
-        _refuse_unported(mesh=mesh is not None, health=health, predict=predict)
+        _refuse_mesh(mesh)
         self.cfg = cfg
+        self.health = bool(health)
+        self.predict = int(predict)
         self.device = resolve_device(device)
         self.group_size = int(group_size)
         self.seed = seed
@@ -296,7 +338,8 @@ class StreamGroupRegistry:
     def _new_group(self, ids: list[str]) -> StreamGroup:
         grp = StreamGroup(self.cfg, ids,
                           seed=self.seed + len(self.groups), device=self.device,
-                          threshold=self.threshold, debounce=self.debounce)
+                          threshold=self.threshold, debounce=self.debounce,
+                          health=self.health, predict=self.predict)
         self.groups.append(grp)
         return grp
 

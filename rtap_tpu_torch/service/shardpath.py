@@ -10,7 +10,11 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["shard_scoped_path", "group_checkpoint_path"]
+__all__ = ["SIDECAR_KINDS", "alert_sidecar_path", "group_checkpoint_path",
+           "shard_scoped_path"]
+
+#: the sidecar files that live beside an alert sink (alert_sidecar_path)
+SIDECAR_KINDS = ("corr", "epoch")
 
 
 def shard_scoped_path(base: str, shard: int) -> str:
@@ -29,3 +33,11 @@ def group_checkpoint_path(checkpoint_dir: str, gi: int) -> str:
     ``<dir>/group<NNNN>``, the name save_group/load_group and every resume
     scan agree on."""
     return os.path.join(checkpoint_dir, f"group{int(gi):04d}")
+
+
+def alert_sidecar_path(alert_path: str, kind: str) -> str:
+    """A sidecar beside an alert sink: ``<alerts>.corr`` (the incident
+    correlator's resume floor) or ``<alerts>.epoch`` (the run epoch)."""
+    if kind not in SIDECAR_KINDS:
+        raise ValueError(f"unknown sidecar kind {kind!r}; valid: {SIDECAR_KINDS}")
+    return f"{alert_path}.{kind}"

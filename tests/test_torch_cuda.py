@@ -191,3 +191,42 @@ def test_live_loop_on_card_matches_cpu(cuda, tmp_path):
             assert np.array_equal(a[k], b[k], equal_nan=True), k
     assert cs["kernel_launches"] == {"tm_learn": 2 * 40} and ps["kernel_launches"] == {"tm_learn": 0}
     assert cs["hbm_peak_bytes_in_use"] > 0 and "hbm_bytes_in_use" not in ps
+
+
+@pytest.mark.parametrize("bits", [16, 0, 8])
+def test_reducer_leaves_on_card_match_cpu(cuda, bits):
+    """The model-side reducers on the card and on the CPU, on the same
+    group ticked by the same chunks: the predict leaves and the state bit
+    for bit; the health leaf's integer fields exact and its f32 fields at
+    rtol=1e-5, atol=1e-6 (the sums' order differs)."""
+    from rtap_tpu_torch.config import scaled_cluster_preset
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.service.registry import StreamGroup
+
+    cfg = scaled_cluster_preset(32, perm_bits=bits) if bits != 16 else scaled_cluster_preset(32)
+    G, T = 8, 48
+    rng = np.random.default_rng(bits)
+    v = (30 + 8 * np.sin(np.arange(T) / 3.0)[:, None] + rng.normal(0, 2.0, (T, G))).astype(np.float32)
+    v[20:30] += 40.0 * (rng.random((10, G)) < 0.3)
+    v[:, 6:] = np.nan  # a half-live group
+    ts = (1_700_000_000 + np.arange(T))[:, None].repeat(G, 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = StreamGroup(cfg, [f"s{i}" for i in range(G)], device=dev, health=True, predict=4)
+        leaves = []
+        for lo in range(0, T, 8):
+            g.run_chunk(v[lo:lo + 8], ts[lo:lo + 8])
+            leaves.append((g.last_health, g.last_predict))
+        out[dev] = (leaves, state_to_numpy(g.state))
+    (cl, cs), (pl, ps) = out["cuda"], out["cpu"]
+    for (ch, cp), (ph, pp) in zip(cl, pl):
+        for k in pp:
+            assert cp[k].dtype == pp[k].dtype and np.array_equal(cp[k], pp[k], equal_nan=True), k
+        for k in ph:
+            if ph[k].dtype.kind == "i":
+                assert np.array_equal(ch[k], ph[k]), k
+            else:
+                np.testing.assert_allclose(ch[k], ph[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    for k in ps:
+        assert np.array_equal(cs[k], ps[k], equal_nan=True), k
+    assert pl[-1][1]["scored"][:, :6].all() and not pl[-1][1]["scored"][:, 6:].any()

@@ -34,7 +34,12 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/service/alerts.py", "rtap_tpu_torch/service/checkpoint.py",
             "rtap_tpu_torch/service/sources.py", "rtap_tpu_torch/service/shardpath.py",
             "rtap_tpu_torch/resilience/journal.py", "rtap_tpu_torch/resilience/policies.py",
-            "rtap_tpu_torch/obs/metrics.py", "rtap_tpu_torch/obs/watchdog.py"} <= names
+            "rtap_tpu_torch/obs/metrics.py", "rtap_tpu_torch/obs/watchdog.py",
+            "rtap_tpu_torch/obs/health.py", "rtap_tpu_torch/ops/health.py",
+            "rtap_tpu_torch/ops/predict.py", "rtap_tpu_torch/predict/horizon.py",
+            "rtap_tpu_torch/predict/blast.py", "rtap_tpu_torch/correlate/topology.py",
+            "rtap_tpu_torch/correlate/incidents.py", "rtap_tpu_torch/eval/lead_time.py",
+            "rtap_tpu_torch/predict_eval.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

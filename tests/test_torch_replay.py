@@ -136,4 +136,4 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["replay", "--nodes", "1", "--length", "80"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamGroup(cfg, ["a"], device="cpu", health=True)
+        StreamGroup(cfg, ["a"], device="cpu", mesh=object())

@@ -464,3 +464,117 @@ def test_serve_refuses_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     assert not (tmp_path / "j").exists()  # refused before the journal opened
+
+
+USAGE_CASES = {
+    "predict-knob-without-predict": ["--predict-horizon", "4"],
+    "predict-threshold-without-predict": ["--predict-threshold", "0.5"],
+    "predict-min-ticks-without-predict": ["--predict-min-ticks", "6"],
+    "predict-horizon-0": ["--predict", "--predict-horizon", "0"],
+    "predict-min-ticks-0": ["--predict", "--predict-min-ticks", "0"],
+    "correlate-without-topology": ["--correlate-window", "5"],
+    "correlate-min-without-topology": ["--correlate-min-streams", "3"],
+    "topology-without-alerts": ["--topology", "infer"],
+    "correlate-window-0": ["--topology", "infer", "--alerts", "a.jsonl",
+                           "--correlate-window", "0"],
+    "correlate-min-streams-1": ["--topology", "infer", "--alerts", "a.jsonl",
+                                "--correlate-min-streams", "1"],
+}
+
+
+@pytest.mark.parametrize("case", list(USAGE_CASES))
+def test_serve_model_side_usage_error_is_the_jax_message(capsys, case):
+    from rtap_tpu.__main__ import main as j_main
+    from rtap_tpu_torch.__main__ import main
+
+    argv = ["serve", "--streams", "a", *USAGE_CASES[case]]
+    assert j_main(argv) == 2
+    want = capsys.readouterr().err
+    assert main([*argv, "--device", "cpu"]) == 2
+    assert capsys.readouterr().err == want and want.startswith("serve: ")
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--predict", "--predict-threshold", "1.5"], "serve: bad --predict parameters: threshold"),
+    (["--health", "--health-drift-threshold", "0"], "serve: bad --health parameters: drift"),
+    (["--topology", "/nonexistent/topo.json", "--alerts", "a.jsonl"], "serve: bad --topology"),
+])
+def test_serve_bad_model_side_values_exit_2(capsys, argv, needle):
+    from rtap_tpu_torch.__main__ import main
+
+    assert main(["serve", "--streams", "a", "--device", "cpu", *argv]) == 2
+    assert capsys.readouterr().err.startswith(needle)
+
+
+def test_serve_bumps_the_run_epoch_beside_the_alerts(tmp_path, capsys):
+    """Every serve start with --alerts bumps <alerts>.epoch, whatever the
+    other flags, as the JAX serve does."""
+    from rtap_tpu_torch.__main__ import main
+
+    alerts = str(tmp_path / "alerts.jsonl")
+    for want in (1, 2):
+        assert main(["serve", "--streams", "a", "--device", "cpu", "--columns", "32",
+                     "--ticks", "1", "--cadence", "0", "--port", "0",
+                     "--alerts", alerts]) == 0
+        capsys.readouterr()
+        assert json.loads(open(alerts + ".epoch").read())["epoch"] == want
+
+
+def test_serve_cli_model_side_flags_over_tcp(tmp_path):
+    """`serve --health --predict --topology infer` through the operator
+    command: armed on stderr, the trackers' blocks in the stats line, the
+    correlator's sidecar and the run epoch beside the alerts."""
+    from rtap_tpu_torch.service.sources import send_jsonl
+
+    alerts = tmp_path / "alerts.jsonl"
+    ids = ["web-00.cpu", "web-01.cpu", "db-00.cpu"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rtap_tpu_torch", "serve", "--streams", ",".join(ids),
+         "--ticks", "6", "--cadence", "0.2", "--device", "cpu", "--port", "0",
+         "--columns", "32", "--alerts", str(alerts), "--health", "--predict",
+         "--predict-horizon", "2", "--topology", "infer", "--correlate-window", "5",
+         "--pipeline-depth", "2"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    port = None
+    lines = []
+
+    def read_stderr():
+        nonlocal port
+        for line in proc.stderr:
+            lines.append(line)
+            if "listening for JSONL records on" in line:
+                port = int(line.rsplit(":", 1)[1])
+
+    threading.Thread(target=read_stderr, daemon=True).start()
+    deadline = time.time() + 120
+    while port is None and time.time() < deadline and proc.poll() is None:
+        time.sleep(0.05)
+    assert port, (proc.poll(), "".join(lines)[-2000:])
+    stop = threading.Event()
+
+    def produce():
+        k = 0
+        while not stop.is_set():
+            send_jsonl(("127.0.0.1", port), [{"id": s, "value": 40 + k + i,
+                                              "ts": int(time.time()) + 60 + k}
+                                             for i, s in enumerate(ids)])
+            k += 1
+            time.sleep(0.05)
+
+    threading.Thread(target=produce, daemon=True).start()
+    out, _ = proc.communicate(timeout=300)
+    stop.set()
+    err = "".join(lines)
+    assert proc.returncode == 0, err[-2000:]
+    for armed in ("incident correlation armed (inferred; window 5s, min 3 streams)",
+                  "model-health reducers armed", "predictive horizon armed (k=2 ticks",
+                  "blast fusion on"):
+        assert armed in err
+    stats = json.loads(out.strip().splitlines()[-1])
+    assert stats["ticks"] == 6 and stats["scored"] == 18
+    assert stats["health"]["groups"] == 1 and stats["health"]["ticks_folded"] == 6
+    assert stats["predict"]["horizon_ticks"] == 2 and stats["predict"]["ticks_folded"] == 6
+    assert stats["incidents"]["resume"]["scanned"] == 0
+    assert json.loads(open(str(alerts) + ".epoch").read())["epoch"] == 1
+    tel = {m["name"]: m["value"] for m in stats["telemetry"]["metrics"] if "labels" not in m}
+    assert tel["rtap_obs_run_epoch"] == 1 and tel["rtap_obs_health_fold_seconds"]["count"] == 6
