@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay and serve paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve, NAB and model paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T]
 
@@ -15,7 +15,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    full); then the same on a dense random state at the main path's
    per-stream shape (n_seg = 4096, M = 12, int16/u16, G = 2,048); then
    learned states at the group sizes of phases 6 and 7 (G = 4,096 and
-   1,024).
+   1,024), and at the shapes of phases 11 and 14 (nab_preset at G = 8,
+   composite and categorical presets at G = 64).
 4. the slice: ``replay_streams`` on cuda, cluster preset, G streams in one
    group, T ticks in chunks of 64 with learning, synthetic cluster data from
    --seed. The kernel's launch count must equal the learning ticks, raw must
@@ -71,6 +72,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    its first precursor is on the alert stream and resumed from its
    checkpoint and journal: every precursor, predicted_incident and
    incident id exactly once, the page tick unchanged.
+11. the NAB corpus: ``python -m rtap_tpu_torch nab`` as a child on the card
+   over data/nab (8 files, 32,256 records, nab_preset, every file one stream
+   of one group): the JAX package's quality floors for this corpus, finite
+   per-file scores, one kernel launch per learning tick; wall time,
+   records/s and peak device memory reported, the scores beside the JAX
+   package's TPU run of the same corpus (quality only). The group's final
+   state, saved by the child, holds the kernel to its plain version after
+   4,032 learning ticks. Then card == CPU on the first NAB_CPU_ROWS rows of
+   one file (raw equal, loglik within 1e-12, scores equal): past the
+   likelihood probation and through a labelled window, what the CPU runs in
+   about a minute at this width.
+12. ``AnomalyDetector`` on the card over golden_config1's stream: raw equal
+   to tests/golden/golden_config1.npz, loglik within 1e-12; saved at row
+   200, loaded and continued: the same rows.
+13. the SDR classifier: cluster_preset + classifier at G = 64 over 64
+   learning ticks on the card and the CPU: raw, the model leaves and
+   cls_cnt bit for bit, cls_w at rtol 1e-5 / atol 1e-6, predictions and
+   probabilities within 1e-4.
+14. ``serve --preset nab`` (64 streams in one group, 30 ticks),
+   ``--preset composite`` and ``--preset categorical`` (4,096 streams in one
+   group, 20 ticks each) fed by phase 6's tick-gated TCP feeder at 1 s
+   cadence: every tick after tick 0 under 1 s, values missing only at tick
+   0, well-formed alert lines, one launch per group per learning tick; peak
+   device memory reported.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -104,6 +129,20 @@ SERVE_CHECKPOINT_EVERY = 20  # one save round mid-run, one on exit
 DRILL_STREAMS, DRILL_GROUP, DRILL_TICKS = 2048, 1024, 96  # phase 7: 2 groups
 DRILL_CHECKPOINT_EVERY = 16
 DRILL_KILLS = (40, 70)  # journal ticks to SIGKILL at, off the 16-tick save grid
+NAB_RECORDS = 32256  # data/nab: 8 files of 4,032 rows
+NAB_ROWS = 4032  # learning ticks of the batched corpus run (the longest file)
+# the JAX package's quality floors for this corpus
+# (tests/integration/test_nab_run.py::test_committed_corpus_artifact_floors)
+NAB_FLOORS = {"standard": 6.0, "reward_low_FN": 15.0, "reward_low_FP": 2.0}
+# card == CPU on a prefix of one file: past the 388-row likelihood probation
+# and through the file's first labelled window (rows 1,117-1,185), about a
+# minute of the CPU's plain path at this width
+NAB_CPU_SUBSET, NAB_CPU_ROWS = "realAWSCloudwatch/ec2_cpu_utilization_5f5533", 1200
+GOLDEN_ROWS, GOLDEN_SAVE_AT = 400, 200  # phase 12
+CLS_STREAMS, CLS_TICKS = 64, 64  # phase 13
+# phase 14: (preset, streams, group size, ticks)
+PRESET_SERVES = (("nab", 64, 64, 30), ("composite", 4096, 4096, 20),
+                 ("categorical", 4096, 4096, 20))
 
 
 def emit(phase: str, **kw) -> None:
@@ -373,12 +412,13 @@ def _tree_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list[str]) -> tuple:
+def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list[str],
+                 group: int = SERVE_GROUP, n_ticks: int = SERVE_TICKS) -> tuple:
     """`python -m rtap_tpu_torch serve` on cuda over `ids` (groups of
-    SERVE_GROUP, depth 2, 1 s cadence, SERVE_TICKS ticks, alerts and the
-    journal in `work`, plus `extra` flags), fed over TCP by this process:
-    tick t + 1's records when the child journals tick t -> (stats, records
-    sent, stderr)."""
+    `group`, depth 2, 1 s cadence, `n_ticks` ticks, alerts and the journal
+    in `work`, plus `extra` flags), fed over TCP by this process: tick
+    t + 1's records when the child journals tick t -> (stats, records sent,
+    stderr)."""
     from rtap_tpu_torch.resilience.journal import last_journal_tick
     from rtap_tpu_torch.service.sources import send_jsonl
 
@@ -387,8 +427,8 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
     journal_dir = os.path.join(work, "journal")
     cmd = [sys.executable, "-m", "rtap_tpu_torch", "serve", "--streams",
            "@" + os.path.join(work, "ids.txt"), "--device", "cuda",
-           "--group-size", str(SERVE_GROUP), "--pipeline-depth", "2", "--cadence", "1.0",
-           "--ticks", str(SERVE_TICKS), "--port", "0",
+           "--group-size", str(group), "--pipeline-depth", "2", "--cadence", "1.0",
+           "--ticks", str(n_ticks), "--port", "0",
            "--alerts", os.path.join(work, "alerts.jsonl"), "--journal-dir", journal_dir, *extra]
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -433,19 +473,21 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
     return json.loads(out.strip().splitlines()[-1]), sent, "".join(err_lines)
 
 
-def _serve_feed(seed: int, ts0: int | None = None):
-    """Seeded synthetic cluster values for SERVE_STREAMS streams -> (their
-    stream ids, one record list per fed tick 1..SERVE_TICKS-1, seconds).
-    `ts0` re-anchors the timestamps (tick 0 at ts0)."""
+def _serve_feed(seed: int, ts0: int | None = None, n_streams: int = SERVE_STREAMS,
+                n_ticks: int = SERVE_TICKS, value=float):
+    """Seeded synthetic cluster values for `n_streams` streams -> (their
+    stream ids, one record list per fed tick 1..n_ticks-1, seconds).
+    `ts0` re-anchors the timestamps (tick 0 at ts0); `value` maps each
+    synthetic value to the wire value."""
     from rtap_tpu_torch.data.synthetic import cluster_streams
 
     t0 = time.perf_counter()
     # tick 0 polls before anything is sent; ticks 1.. get one fed tick each
-    streams = cluster_streams(SERVE_STREAMS, SERVE_TICKS - 1, seed, n_anomalies=0)
+    streams = cluster_streams(n_streams, n_ticks - 1, seed, n_anomalies=0)
     ids = [s.stream_id for s in streams]
     shift = 0 if ts0 is None else ts0 + 1 - int(streams[0].timestamps[0])
-    ticks = [[{"id": sid, "value": float(s.values[t]), "ts": int(s.timestamps[t]) + shift}
-              for sid, s in zip(ids, streams)] for t in range(SERVE_TICKS - 1)]
+    ticks = [[{"id": sid, "value": value(s.values[t]), "ts": int(s.timestamps[t]) + shift}
+              for sid, s in zip(ids, streams)] for t in range(n_ticks - 1)]
     return ids, ticks, time.perf_counter() - t0
 
 
@@ -1024,6 +1066,290 @@ def phase_cascade(card: str) -> dict:
     emit("cascade", **row)
     return row
 
+def _nab_run(device: str, work: str, tag: str, *extra: str) -> tuple[dict, dict]:
+    """`python -m rtap_tpu_torch nab` on data/nab as a child -> (its report,
+    its per-row detections by key)."""
+    out, det = os.path.join(work, f"{tag}.json"), os.path.join(work, f"{tag}.npz")
+    cmd = [sys.executable, "-m", "rtap_tpu_torch", "nab", "--device", device,
+           "--out", out, "--detections", det, *extra]
+    p = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=1200)
+    if p.returncode != 0:
+        raise AssertionError(f"nab {tag} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    with np.load(det) as z:
+        return rep, {k: z[k] for k in z.files}
+
+
+def _nab_same(a: tuple[dict, dict], b: tuple[dict, dict]) -> dict:
+    """Two nab runs of one corpus: raw equal, loglik within 1e-12, the exact
+    scores equal -> the largest loglik difference, or raise."""
+    (ra, da), (rb, db) = a, b
+    if sorted(da) != sorted(db):
+        raise AssertionError(f"detections differ in keys: {sorted(set(da) ^ set(db))}")
+    raw_bad = [k for k in da if k.startswith("raw/") and not np.array_equal(da[k], db[k])]
+    ll_err = max(float(np.abs(da[k] - db[k]).max()) for k in da if k.startswith("loglik/"))
+    if raw_bad or ll_err > 1e-12 or ra["scores_exact"] != rb["scores_exact"]:
+        raise AssertionError(f"card vs CPU: raw differs in {raw_bad}, loglik max error "
+                             f"{ll_err}, scores {ra['scores_exact']} vs {rb['scores_exact']}")
+    return dict(files=len(ra["files"]), records=ra["records"], raw_equal=True,
+                loglik_max_abs_err=ll_err, scores_equal=True, scores=ra["scores_exact"],
+                card_wall_s=ra["wall_s_exact"], cpu_wall_s=rb["wall_s_exact"])
+
+
+def phase_nab_corpus(card: str) -> tuple[dict, dict]:
+    """`nab` over the whole stand-in corpus on the card (8 files in one
+    group, nab_preset); the kernel against its plain version on the group's
+    final state; then card == CPU on a prefix -> (row, kernel row)."""
+    from rtap_tpu_torch.data.nab_corpus import load_corpus
+    from rtap_tpu_torch.ops.step import next_learn_pass
+    from rtap_tpu_torch.service.checkpoint import load_group
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="rtap-nab-")
+    try:
+        t0 = time.perf_counter()
+        rep, det = _nab_run("cuda", work, "card", "--save-group", os.path.join(work, "grp"))
+        run_s = time.perf_counter() - t0
+        # the kernel after NAB_ROWS learning ticks at the corpus group's shape
+        grp = load_group(os.path.join(work, "grp"), device="cuda")
+        files = load_corpus(os.path.join(here, "data", "nab"))
+        values = torch.from_numpy(np.array([[f.values[-1]] for f in files], np.float32)).cuda()
+        ts = torch.from_numpy(np.array([f.timestamps[-1] + 300 for f in files], np.int32)).cuda()
+        lp = next_learn_pass(grp.cfg, grp.state, values, ts)
+        del grp
+        krow = compare_pass("nab_corpus_group_final", lp, kernel_reps=20, plain_reps=3)
+        krow.update(learning_ticks_before=NAB_ROWS, card=card)
+        emit("kernel_vs_plain", **krow)
+        del lp
+        torch.cuda.empty_cache()
+        # card == CPU on a prefix of one file, at full width
+        extra = ("--rows", str(NAB_CPU_ROWS), "--subset", NAB_CPU_SUBSET)
+        prefix = dict(args=list(extra), **_nab_same(_nab_run("cuda", work, "prefix_card", *extra),
+                                                    _nab_run("cpu", work, "prefix_cpu", *extra)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    scores = {k: v["score"] for k, v in rep["scores_exact"].items()}
+    finite = all(np.isfinite(v).all() for k, v in det.items())
+    checks = {
+        "records": rep["records"] == NAB_RECORDS and len(rep["files"]) == 8,
+        "floors": all(scores[k] >= v for k, v in NAB_FLOORS.items()),
+        "finite": finite and len(det) == 16,
+        "kernel_launches": rep["kernel_launches"]["tm_learn"] == NAB_ROWS,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"nab corpus checks failed {bad}: {rep}")
+    with open(os.path.join(here, "reports", "nab_standin.json")) as f:
+        standin = json.load(f)  # a TPU run of the JAX package: quality only
+    row = dict(preset="nab_preset", files=len(rep["files"]), records=rep["records"],
+               group_size=len(rep["files"]), learning_ticks=NAB_ROWS,
+               wall_s=rep["wall_s_exact"], records_per_s=rep["records"] / rep["wall_s_exact"],
+               child_s=run_s, kernel_launches=rep["kernel_launches"]["tm_learn"],
+               kernel_ms_per_launch=krow["kernel_ms"], kernel_bound_ms=krow["bound_ms"],
+               kernel_bound_full_ms=krow["bound_full_ms"],
+               max_memory_allocated=rep.get("max_memory_allocated"),
+               scores=scores, thresholds={k: v["threshold"] for k, v in rep["scores_exact"].items()},
+               floors=NAB_FLOORS,
+               reference_scores_tpu_run={k: v["score"] for k, v in standin["scores"].items()},
+               card_vs_cpu=prefix, card=card)
+    emit("nab_corpus", **row)
+    return row, krow
+
+
+def golden_config():
+    """The model of tests/golden/golden_config1.npz, in the port's terms."""
+    from rtap_tpu_torch.config import (DateConfig, LikelihoodConfig, ModelConfig,
+                                       RDSEConfig, SPConfig, TMConfig)
+
+    return ModelConfig(
+        rdse=RDSEConfig(size=200, active_bits=11, resolution=0.9),
+        date=DateConfig(time_of_day_width=11, time_of_day_size=32),
+        sp=SPConfig(columns=512, num_active_columns=20),
+        tm=TMConfig(cells_per_column=8, activation_threshold=9, min_threshold=6,
+                    max_segments_per_cell=8, max_synapses_per_segment=16,
+                    new_synapse_count=12),
+        likelihood=LikelihoodConfig(learning_period=60, estimation_samples=30,
+                                    reestimation_period=20, averaging_window=5),
+    )
+
+
+def phase_golden(card: str) -> dict:
+    """AnomalyDetector on the card over golden_config1's stream (the
+    stand-in file ...5f5533, 400 rows): raw equal to the golden, loglik
+    within 1e-12; saved at row 200, loaded and continued: the same rows."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.data.nab_corpus import load_corpus
+    from rtap_tpu_torch.models import AnomalyDetector, HTMModel
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    nf = next(f for f in load_corpus(os.path.join(here, "data", "nab")) if "5f5533" in f.name)
+    golden = np.load(os.path.join(here, "tests", "golden", "golden_config1.npz"))
+
+    def run(model, lo, hi):
+        out = [model.run(int(nf.timestamps[i]), float(nf.values[i])) for i in range(lo, hi)]
+        return np.array([r.raw_score for r in out]), np.array([r.log_likelihood for r in out])
+
+    det = AnomalyDetector(golden_config(), seed=0, device="cuda")
+    tl.reset_launches()
+    t0 = time.perf_counter()
+    raw, loglik = run(det.model, 0, GOLDEN_ROWS)
+    seconds = time.perf_counter() - t0
+    launches = tl.launches
+    ll_err = float(np.abs(loglik - golden["loglik"]).max())
+    work = tempfile.mkdtemp(prefix="rtap-golden-")
+    try:
+        first = AnomalyDetector(golden_config(), seed=0, device="cuda").model
+        run(first, 0, GOLDEN_SAVE_AT)
+        path = os.path.join(work, "model.npz")
+        first.save(path)
+        resumed = HTMModel.load(path, device="cuda")
+        raw2, ll2 = run(resumed, GOLDEN_SAVE_AT, GOLDEN_ROWS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    checks = {
+        "raw_equal": np.array_equal(raw, golden["raw"]),
+        "loglik_1e-12": ll_err <= 1e-12,
+        "launches": launches == GOLDEN_ROWS,
+        "resumed_raw_equal": np.array_equal(raw2, raw[GOLDEN_SAVE_AT:]),
+        "resumed_loglik_equal": np.array_equal(ll2, loglik[GOLDEN_SAVE_AT:]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        where = np.nonzero(raw != golden["raw"])[0]
+        raise AssertionError(f"golden on the card failed {bad}: first raw mismatch at "
+                             f"{where[:5]}, loglik max error {ll_err}")
+    row = dict(golden="tests/golden/golden_config1.npz", rows=GOLDEN_ROWS, raw_equal=True,
+               loglik_max_abs_err=ll_err, kernel_launches=launches, seconds=seconds,
+               ms_per_record=seconds / GOLDEN_ROWS * 1e3, saved_at=GOLDEN_SAVE_AT,
+               resumed_equal=True, card=card)
+    emit("htm_model_golden", **row)
+    return row
+
+
+def phase_classifier(seed: int, card: str) -> dict:
+    """cluster_preset with the SDR classifier at G = 64 over 64 learning
+    ticks on the card and on the CPU: raw, every other leaf and cls_cnt bit
+    for bit, cls_w at rtol 1e-5 / atol 1e-6, predictions and probabilities
+    within 1e-4."""
+    import dataclasses
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.config import ClassifierConfig, cluster_preset
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+    from rtap_tpu_torch.models.state import init_state, state_nbytes, state_to_numpy
+    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
+
+    cfg = dataclasses.replace(cluster_preset(), classifier=ClassifierConfig(enabled=True))
+    streams = cluster_streams(CLS_STREAMS, CLS_TICKS, seed + 2, n_anomalies=0)
+    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None])
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = replicate_state_device(init_state(cfg, seed), CLS_STREAMS, dev)
+        tl.reset_launches()
+        t0 = time.perf_counter()
+        st, (raw, pred, prob) = chunk_step(st, vals.to(dev), ts.to(dev), cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(raw=raw.cpu().numpy(), pred=pred.cpu().numpy(), prob=prob.cpu().numpy(),
+                        state=state_to_numpy(st), launches=tl.launches,
+                        seconds=time.perf_counter() - t0)
+    c, p = out["cuda"], out["cpu"]
+    leaf_bad = [k for k in p["state"] if k not in ("cls_w", "cls_val")
+                and not np.array_equal(c["state"][k], p["state"][k], equal_nan=True)]
+    errs = {k: float(np.abs(c[k].astype(np.float64) - p[k]).max()) for k in ("pred", "prob")}
+    for k in ("cls_w", "cls_val"):
+        errs[k] = float(np.abs(c["state"][k].astype(np.float64) - p["state"][k]).max())
+    cls_ok = all(np.allclose(c["state"][k], p["state"][k], rtol=1e-5, atol=1e-6)
+                 for k in ("cls_w", "cls_val"))
+    checks = {
+        "raw_equal": np.array_equal(c["raw"], p["raw"]),
+        "leaves_equal": not leaf_bad,
+        "cls_w": cls_ok,
+        "pred_prob_1e-4": errs["pred"] <= 1e-4 and errs["prob"] <= 1e-4,
+        "launches": c["launches"] == CLS_TICKS,
+        "finite": np.isfinite(c["pred"]).all() and np.isfinite(c["prob"]).all(),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"classifier card vs CPU failed {bad}: leaves {leaf_bad}, {errs}")
+    row = dict(preset="cluster_preset + classifier", buckets=cfg.classifier.buckets,
+               streams=CLS_STREAMS, ticks=CLS_TICKS,
+               state_bytes_per_stream=state_nbytes(cfg)["total"],
+               classifier_bytes_per_stream=sum(v for k, v in state_nbytes(cfg).items()
+                                               if k.startswith("cls_")),
+               leaves_bit_equal=len(p["state"]) - 2, max_abs_err=errs,
+               kernel_launches=c["launches"], card_s=c["seconds"], cpu_s=p["seconds"],
+               card=card)
+    emit("classifier", **row)
+    return row
+
+
+def phase_serve_presets(seed: int, card: str) -> dict:
+    """`serve --preset nab|composite|categorical` on the card, fed by the
+    tick-gated TCP feeder at 1 s cadence -> {preset: row}."""
+    rows = {}
+    for preset, n_streams, group, n_ticks in PRESET_SERVES:
+        # the categorical preset reads the wire value as a category id
+        value = (lambda v: float(np.floor(v / 9.0))) if preset == "categorical" else float
+        ids, ticks, gen_s = _serve_feed(seed, n_streams=n_streams, n_ticks=n_ticks,
+                                        value=value)
+        work = tempfile.mkdtemp(prefix=f"rtap-serve-{preset}-")
+        try:
+            stats, sent, _ = _serve_child(ids, ticks, work, ["--preset", preset],
+                                          group=group, n_ticks=n_ticks)
+            missed, alert_lines, events, malformed = [], 0, {}, 0
+            for line in open(os.path.join(work, "alerts.jsonl")):
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    malformed += 1
+                    continue
+                if "event" in rec:
+                    events[rec["event"]] = events.get(rec["event"], 0) + 1
+                    if rec["event"] == "missed_tick":
+                        missed.append((rec["tick"], rec["elapsed_s"]))
+                elif {"alert_id", "raw_score"} <= rec.keys():
+                    alert_lines += 1
+                else:
+                    malformed += 1
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        groups = -(-n_streams // group)
+        checks = {
+            "preset": stats.get("preset") == preset,
+            "ticks": stats["ticks"] == n_ticks,
+            "scored": stats["scored"] == n_ticks * n_streams,
+            # only tick 0, polled before the first push, lacks values
+            "missing_values": stats["missing_values"] == n_streams,
+            "records_parsed": stats["records_parsed"] == sent == (n_ticks - 1) * n_streams,
+            "parse_errors": stats["parse_errors"] == 0 and stats["unknown_ids"] == 0,
+            "tm_overflow_total": stats["tm_overflow_total"] == 0,
+            "under_1s_after_tick_0": all(t == 0 for t, _ in missed),
+            "alert_lines_well_formed": malformed == 0,
+            "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * n_ticks,
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"serve --preset {preset} checks failed {bad}: missed {missed}, "
+                                 f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
+        rows[preset] = dict(preset=preset, streams=n_streams, group_size=group, groups=groups,
+                            ticks=stats["ticks"], scored=stats["scored"],
+                            missing_values=stats["missing_values"], alerts=alert_lines,
+                            events_on_stream=events,
+                            latency_p50_ms=stats["latency_p50_ms"],
+                            latency_p99_ms=stats["latency_p99_ms"],
+                            latency_max_ms=stats["latency_max_ms"],
+                            missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
+                            phase_ms_per_tick=stats["phase_ms_per_tick"],
+                            hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"],
+                            kernel_launches=stats["kernel_launches"]["tm_learn"],
+                            feed_gen_s=gen_s, card=card)
+        emit("serve_preset", **rows[preset])
+    return rows
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1043,7 +1369,8 @@ def main() -> int:
     if args.child:
         return run_drill_child(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rtap_tpu_torch.config import cluster_preset, nab_preset
+    from rtap_tpu_torch.config import (categorical_preset, cluster_preset, composite_preset,
+                                       nab_preset)
     from rtap_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -1075,39 +1402,58 @@ def main() -> int:
                                       ("cluster_f32", cluster_preset(perm_bits=0), 64),
                                       ("nab", nab_preset(), 1))]
     cmp_rows.append(phase_dense(DENSE_STREAMS, args.seed, smi))
-    # ... and at the group shapes the serve and drill paths (phases 6-7) give it
+    # ... at the group shapes the serve and drill paths (phases 6-7) give it
     cmp_rows += [phase_compare(label, cluster_preset(), G, args.warm_ticks, args.seed, smi)
                  for label, G in (("cluster_u16_serve_group", SERVE_GROUP),
                                   ("cluster_u16_drill_group", DRILL_GROUP))]
+    # ... and at the shapes of phases 11 and 14
+    cmp_rows += [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
+                 for label, cfg, G in (("nab_corpus_group", nab_preset(), 8),
+                                       ("composite_u16", composite_preset(), 64),
+                                       ("categorical_u16", categorical_preset(), 64))]
+    torch.cuda.empty_cache()
+    rows = {}
     # 4. the slice, then the kernel at the main path's own shape
-    launches, main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
+    rows["replay"], main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
+    cmp_rows.append(main_row)
     # 5. card vs CPU
     phase_card_vs_cpu(args.seed)
     torch.cuda.empty_cache()  # the children below need the card's memory
     # 6. serve at full width through the real entry point
     serve_row = phase_serve(args.seed, smi)
+    rows["serve"] = serve_row["kernel_launches"]
     # 7. kill -9 drill
-    drill_row = phase_kill_drill(args.seed, smi)
+    rows["kill_drill"] = phase_kill_drill(args.seed, smi)["fault_free_kernel_launches"]
     # 8. serve with the model-side flags at full width
-    ms_row = phase_serve_model_side(args.seed, smi, serve_row)
+    rows["serve_model_side"] = phase_serve_model_side(args.seed, smi,
+                                                      serve_row)["kernel_launches"]
     # 9. flags on vs off, and the reducers card vs CPU
-    onoff_row = phase_flags_on_off(args.seed, smi)
+    rows["flags_on"] = phase_flags_on_off(args.seed, smi)["launches_on"]
     # 10. the cascade eval on the card, then killed and resumed
     phase_cascade(smi)
-
+    # 11. the NAB corpus through `nab`, the kernel after it, card == CPU
+    nab_row, nab_krow = phase_nab_corpus(smi)
+    rows["nab"] = nab_row["kernel_launches"]
+    cmp_rows.append(nab_krow)
+    torch.cuda.empty_cache()
+    # 12. the HTMModel golden on the card
+    rows["htm_model"] = phase_golden(smi)["kernel_launches"]
+    # 13. the SDR classifier, card vs CPU
+    rows["classifier"] = phase_classifier(args.seed, smi)["kernel_launches"]
+    torch.cuda.empty_cache()
+    # 14. serve --preset nab|composite|categorical
+    for preset, row in phase_serve_presets(args.seed, smi).items():
+        rows[f"serve_{preset}"] = row["kernel_launches"]
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in cmp_rows + [main_row]),
+        "replaces": KERNEL_REPLACES, "launches": rows["replay"],
+        "max_abs_err": max(r["max_abs_err"] for r in cmp_rows),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "bound_full_ms": main_row["bound_full_ms"],
         "library_ms": None,
         # each path's launches, counted from 0 around that path's run
-        "launches_by_path": {"replay": launches, "serve": serve_row["kernel_launches"],
-                             "kill_drill": drill_row["fault_free_kernel_launches"],
-                             "serve_model_side": ms_row["kernel_launches"],
-                             "flags_on": onoff_row["launches_on"]},
+        "launches_by_path": rows,
     }
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kern]}), flush=True)

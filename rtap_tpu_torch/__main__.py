@@ -4,8 +4,10 @@
              listener or an HTTP poll endpoint; prints one JSON stats line.
     replay   synthetic cluster replay through stream groups at full speed;
              prints one JSON line of stats.
+    nab      NAB-style detection quality over a corpus: detect, sweep the
+             threshold, print the normalized score of each cost profile.
 
-Both run on cuda unless --device cpu. The flags mirror the JAX package's
+All run on cuda unless --device cpu. The flags mirror the JAX package's
 subcommands where they apply (``--device`` takes the place of
 ``--backend``); every JAX serve flag this package does not port yet exits 2
 naming it, so nothing is silently ignored.
@@ -15,9 +17,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
+import time
 
 #: JAX-package serve flags not ported yet -> (takes a value, ROADMAP.md queue
 #: item that ports it; "--device" for the flag it replaces). Each is parsed
@@ -61,6 +65,20 @@ def _sized_cluster(args: argparse.Namespace):
     return cluster_preset() if args.columns is None else scaled_cluster_preset(args.columns)
 
 
+def _serve_preset(args: argparse.Namespace):
+    """The model family of ``serve --preset`` (``--columns`` scales the
+    cluster preset only; main() refuses it with the others)."""
+    from rtap_tpu_torch.config import categorical_preset, composite_preset, nab_preset
+
+    if args.preset == "nab":
+        return nab_preset()
+    if args.preset == "composite":
+        return composite_preset()
+    if args.preset == "categorical":
+        return categorical_preset()
+    return _sized_cluster(args)
+
+
 def _refused_serve_flag(args: argparse.Namespace) -> str | None:
     """The first given serve flag this package does not port, with why."""
     for flag, (_takes_value, where) in UNPORTED_SERVE_FLAGS.items():
@@ -70,8 +88,7 @@ def _refused_serve_flag(args: argparse.Namespace) -> str | None:
         if where == "--device":
             return f"{flag} is not ported to rtap_tpu_torch: it takes --device cuda|cpu"
         return f"{flag} is not ported to rtap_tpu_torch yet ({where}; ROADMAP.md queue A)"
-    for flag, ok, where in (("--preset", args.preset == "cluster", "A.2, A.9"),
-                            ("--shard", args.shard == 0, "A.11"),
+    for flag, ok, where in (("--shard", args.shard == 0, "A.11"),
                             ("--dispatch-threads", args.dispatch_threads == 1, "scheduling")):
         if not ok:
             return (f"{flag} {getattr(args, flag[2:].replace('-', '_'))} is not ported to "
@@ -201,7 +218,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     if args.group_size < 1:
         print("serve: --group-size must be >= 1", file=sys.stderr)
         return 2
-    cfg = _apply_cadence(_sized_cluster(args), args)
+    cfg = _apply_cadence(_serve_preset(args), args)
     gsize = min(args.group_size, len(ids))
     # --auto-register without reserved capacity can only claim rounding
     # pads: one extra group's worth by default
@@ -297,6 +314,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         if v is not None:
             stats[attr] = v
     stats["device"] = str(reg.device)
+    stats["preset"] = args.preset
     # the process's telemetry registry, read once at exit (the JAX
     # package's live exposition, --obs-port/--obs-snapshot, is not ported)
     stats["telemetry"] = get_registry().snapshot()
@@ -323,6 +341,83 @@ def _cmd_replay(args: argparse.Namespace) -> int:
                          debounce=args.debounce, learn=not args.freeze)
     print(json.dumps({"streams": len(res.stream_ids), "ticks": len(res.timestamps),
                       "device": args.device or "cuda", **res.throughput}))
+    return 0
+
+
+def _cmd_nab(args: argparse.Namespace) -> int:
+    """Load a NAB-layout corpus, run the detector over every file, sweep
+    the threshold exhaustively, report normalized per-profile scores."""
+    import numpy as np
+
+    from rtap_tpu_torch.data.nab_corpus import NAB_CORPUS_ENV, NabFile, load_corpus
+    from rtap_tpu_torch.nab.runner import run_corpus
+
+    repo =os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = args.corpus or os.environ.get(NAB_CORPUS_ENV) or os.path.join(repo, "data", "nab")
+    if not os.path.isfile(os.path.join(root, "labels", "combined_windows.json")):
+        print(f"nab: no corpus at {root} (need data/**/*.csv + labels/"
+              "combined_windows.json). Pass --corpus, set "
+              f"${NAB_CORPUS_ENV}, or regenerate the stand-in: "
+              "python -c 'from rtap_tpu_torch.data.nab_corpus import "
+              "ensure_standin_corpus; ensure_standin_corpus(\"data/nab\")'",
+              file=sys.stderr)
+        return 2
+    files = load_corpus(root, subset=args.subset)
+    if not files:
+        print(f"nab: corpus at {root} matched no files "
+              f"(subset={args.subset!r})", file=sys.stderr)
+        return 2
+    if args.rows:
+        files = [NabFile(f.name, f.timestamps[: args.rows],
+                         f.values[: args.rows], f.windows) for f in files]
+    cfg = None
+    if args.columns:
+        from rtap_tpu_torch.config import scaled_nab_preset
+
+        cfg = scaled_nab_preset(args.columns)
+    from rtap_tpu_torch.ops import tm_learn
+
+    launches0 = tm_learn.launches
+    t0 = time.time()
+    res = run_corpus(files, cfg=cfg, device=args.device)
+    wall = time.time() - t0
+    scores = {prof: {"threshold": round(thr, 4), "score": round(score, 2)}
+              for prof, (thr, score) in res.scores.items()}
+    report = {
+        "corpus_root": os.path.abspath(root),
+        "device": args.device or "cuda",
+        "files": [f.name for f in files],
+        "records": int(sum(len(f.values) for f in files)),
+        "wall_s": round(wall, 1),
+        "scores": scores,
+        # unrounded, for comparing two runs
+        "scores_exact": {prof: {"threshold": thr, "score": score}
+                         for prof, (thr, score) in res.scores.items()},
+        "wall_s_exact": wall,
+        "kernel_launches": {"tm_learn": tm_learn.launches - launches0},
+    }
+    if res.group is not None and res.group.device.type == "cuda":
+        import torch
+
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated(res.group.device)
+    if args.save_group:
+        from rtap_tpu_torch.service.checkpoint import save_group
+
+        save_group(res.group, args.save_group)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+    if args.detections:
+        # per-file rows: detection score (log-likelihood), and raw on the
+        # batched path
+        arrays = {f"loglik/{f.name}": s for f, (s, _, _) in zip(files, res.per_file)}
+        if res.raw is not None:
+            arrays.update({f"raw/{f.name}": r for f, r in zip(files, res.raw)})
+        os.makedirs(os.path.dirname(os.path.abspath(args.detections)), exist_ok=True)
+        with open(args.detections, "wb") as f:  # the name as given, no .npz added
+            np.savez(f, **arrays)
+    print(json.dumps(scores))
     return 0
 
 
@@ -360,7 +455,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ticks", type=int, default=60)
     p.add_argument("--cadence", type=float, default=1.0)
     p.add_argument("--preset", default="cluster",
-                   help="model family (only cluster is ported)")
+                   choices=("cluster", "nab", "composite", "categorical"),
+                   help="model family: cluster (default; --columns scales it), nab "
+                        "(2048 columns, f32, window likelihood), composite (value, "
+                        "delta and event-class fields of one wire value) or "
+                        "categorical (the value as a category id)")
     p.add_argument("--group-size", type=int, default=1024, help="streams per device group")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="checkpoint cadence in ticks (0 = save only on exit)")
@@ -466,11 +565,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeze", action="store_true",
                    help="inference-only replay: no SP/TM updates; likelihood still adapts")
     p.set_defaults(fn=_cmd_replay)
+
+    p = sub.add_parser("nab", help="NAB corpus run: detect -> threshold sweep -> "
+                                   "normalized score")
+    p.add_argument("--corpus", default=None,
+                   help="NAB-layout corpus root (data/**/*.csv + labels/"
+                        "combined_windows.json). Default: $RTAP_NAB_CORPUS, else the "
+                        "committed stand-in at <repo>/data/nab")
+    p.add_argument("--subset", default=None,
+                   help="relative-path prefix filter, e.g. realAWSCloudwatch")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
+    p.add_argument("--columns", type=int, default=None,
+                   help="width-scaled NAB model (scaled_nab_preset) instead of the "
+                        "2048-column preset")
+    p.add_argument("--rows", type=int, default=None,
+                   help="truncate files to this many rows")
+    p.add_argument("--out", default=None, help="report JSON path (default: print "
+                                               "scores only)")
+    p.add_argument("--detections", default=None,
+                   help="write each file's per-row detection scores (and raw "
+                        "scores on the batched path) to this .npz")
+    p.add_argument("--save-group", default=None,
+                   help="save the batched group's final state (every file's model and "
+                        "likelihood) as a group checkpoint in this directory")
+    p.set_defaults(fn=_cmd_nab)
     return ap
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # a usage error surfaces before any device work
+    if getattr(args, "preset", "cluster") != "cluster" and \
+            getattr(args, "columns", None) is not None:
+        print("serve: --columns applies to the cluster preset only "
+              "(the NAB family scales via scaled_nab_preset; the "
+              "composite/categorical presets fix their field geometry)",
+              file=sys.stderr)
+        return 2
     return args.fn(args)
 
 

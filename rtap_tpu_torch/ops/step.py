@@ -17,6 +17,13 @@ package's ``_tick`` does: ``predict`` updates its own state leaves first,
 ``health`` reads the state after that, and the predict leaf wraps
 outermost, ``(state, (inner, predict_leaf))`` with ``inner`` what health
 produced. With both off the step is unchanged.
+
+With ``cfg.classifier.enabled`` the step also runs the SDR classifier
+(ops/classifier.py) after the TM and the out becomes ``(raw, prediction,
+probability)``, each [G] (each [T, G] from :func:`chunk_step`); the
+reducers wrap that tuple as they wrap raw alone. Composite delta fields
+advance their predecessor ``enc_prev`` to the last finite value after
+encoding.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from rtap_tpu_torch.config import ModelConfig
+from rtap_tpu_torch.ops.classifier import classifier_step
 from rtap_tpu_torch.ops.encoders import bind_offsets, encode
 from rtap_tpu_torch.ops.health import health_reduce
 from rtap_tpu_torch.ops.predict import predict_update
@@ -43,7 +51,13 @@ def step_stages(cfg: ModelConfig, learn: bool):
         values, ts_unix = x
         enc_offset, enc_bound = bind_offsets(values, state["enc_offset"], state["enc_bound"])
         state = {**state, "enc_offset": enc_offset, "enc_bound": enc_bound}
-        return state, encode(cfg, values, ts_unix, enc_offset, state["enc_resolution"])
+        enc_prev = state.get("enc_prev")  # composite delta fields only
+        sdr = encode(cfg, values, ts_unix, enc_offset, state["enc_resolution"], enc_prev)
+        if enc_prev is not None:
+            # the predecessor advances after encoding (this tick encoded
+            # against the one before); NaN gaps keep the pre-gap baseline
+            state["enc_prev"] = torch.where(torch.isfinite(values), values, enc_prev)
+        return state, sdr
 
     def sp(state, sdr):
         return sp_step(state, sdr, cfg.sp, learn)
@@ -69,11 +83,17 @@ def next_learn_pass(cfg: ModelConfig, state: dict, values: torch.Tensor,
 
 def _step_impl(state: dict, values: torch.Tensor, ts_unix: torch.Tensor,
                cfg: ModelConfig, learn: bool):
-    """One fused record step for G streams -> (new_state, raw f32 [G]).
+    """One fused record step for G streams -> (new_state, raw f32 [G]), or
+    (new_state, (raw, prediction, probability)) with the classifier.
     `values` is [G, n_fields] f32 (NaN = missing sample), `ts_unix` [G]."""
+    pattern_prev = state["prev_active"]  # TM active cells at t - 1
     x = (values, ts_unix)
     for _, stage in step_stages(cfg, learn):
         state, x = stage(state, x)
+    if cfg.classifier.enabled:
+        state, pred, prob = classifier_step(state, pattern_prev, state["prev_active"],
+                                            values[:, 0], cfg, learn)
+        return state, (x, pred, prob)
     return state, x
 
 
@@ -81,7 +101,7 @@ def _tick(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelCo
           learn: bool, tick: int | None, health: bool = False, predict: bool = False):
     """One group tick honoring cfg's learning cadence; `tick` is stream 0's
     tm_iter before the tick (completed steps, lockstep across the group).
-    With `health` the out becomes (raw, health_leaf); with `predict` the
+    With `health` the out becomes (out, health_leaf); with `predict` the
     predict leaf wraps outermost."""
     if learn and cfg.cadence_active:
         learn = bool(cfg.learns_on(tick))
@@ -89,16 +109,11 @@ def _tick(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: ModelCo
     if predict:
         state, pleaf = predict_update(state, values, cfg, tick)
     if health:
-        out = (out, health_reduce(state, out, values, cfg))
+        raw = out[0] if cfg.classifier.enabled else out
+        out = (out, health_reduce(state, raw, values, cfg))
     if predict:
         out = (out, pleaf)
     return state, out
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.classifier.enabled:
-        raise NotImplementedError(
-            "the SDR classifier is not ported yet (ROADMAP.md, port queue A)")
 
 
 def _needs_tick(cfg: ModelConfig, learn: bool, predict: bool) -> bool:
@@ -111,7 +126,6 @@ def group_step(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: Mo
     """One tick for a group: `values` [G, n_fields] f32, `ts_unix` [G] ->
     (state, raw [G] f32), the out wrapped by the reducers' leaves as in
     :func:`_tick`."""
-    _check_supported(cfg)
     if tick is None and _needs_tick(cfg, learn, predict):
         tick = int(state["tm_iter"].reshape(-1)[0])
     return _tick(state, values, ts_unix, cfg, learn, tick, health, predict)
@@ -125,15 +139,16 @@ def chunk_step(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: Mo
                learn: bool = True, tick0: int | None = None, health: bool = False,
                predict: bool = False):
     """T ticks for a group: `values` [T, G, n_fields] f32, `ts_unix` [T, G]
-    -> (state, raw [T, G] f32). `tick0` is stream 0's tm_iter at the start
-    of the chunk (read from the device once when not given and a cadence
-    or the predictor needs it). With `health`/`predict` the out is wrapped
-    as in :func:`_tick`, each leaf stacked over the T ticks."""
-    _check_supported(cfg)
+    -> (state, raw [T, G] f32), or (state, (raw, prediction, probability))
+    each [T, G] with the classifier. `tick0` is stream 0's tm_iter at the
+    start of the chunk (read from the device once when not given and a
+    cadence or the predictor needs it). With `health`/`predict` the out is
+    wrapped as in :func:`_tick`, each leaf stacked over the T ticks."""
     T, G = values.shape[:2]
     if tick0 is None and _needs_tick(cfg, learn, predict):
         tick0 = int(state["tm_iter"].reshape(-1)[0])
-    raw = torch.empty((T, G), dtype=torch.float32, device=values.device)
+    cols = 3 if cfg.classifier.enabled else 1  # raw (, prediction, probability)
+    outs = torch.empty((cols, T, G), dtype=torch.float32, device=values.device)
     hleaves, pleaves = [], []
     for t in range(T):
         tick = None if tick0 is None else tick0 + t
@@ -144,8 +159,12 @@ def chunk_step(state: dict, values: torch.Tensor, ts_unix: torch.Tensor, cfg: Mo
         if health:
             out, hleaf = out
             hleaves.append(hleaf)
-        raw[t] = out
-    out = raw
+        if cfg.classifier.enabled:
+            for c, o in enumerate(out):
+                outs[c, t] = o
+        else:
+            outs[0, t] = out
+    out = tuple(outs) if cfg.classifier.enabled else outs[0]
     if health:
         out = (out, _stack(hleaves))
     if predict:

@@ -19,7 +19,9 @@ punish, death, and the dendrite conn/pot counts for t+1.
   back from one to the other.
 * :func:`tm_learn_plain` — the same pass in plain PyTorch, looping over M
   and the winner list as ``_mega_kernel`` does (the winner loop in blocks,
-  on the growing rows only: the others add and evict nothing).
+  on the growing rows only: the others add and evict nothing). Like the
+  kernel's work list it visits only the rows that hold a synapse or carry
+  a learn/alloc/grow/punish bit.
 
 Both versions update the pools IN PLACE, in their storage dtypes (int16/
 int32 presyn; f32, uint16 or uint8 perm), and return the per-row counts.
@@ -78,23 +80,37 @@ class LearnConsts:
         )
 
 
+def _col_table(col_ids: torch.Tensor, col_masks: torch.Tensor, C: int) -> torch.Tensor:
+    """Per-stream column-mask table [G, C+1] int32 of a packed active set
+    (col_ids [G, Ac] ascending with C fills, col_masks [G, Ac] K-bit int32
+    masks, fills 0): ids are unique and the fill entry C keeps mask 0."""
+    table = torch.zeros((col_ids.shape[0], C + 1), dtype=torch.int32, device=col_ids.device)
+    return table.scatter_(1, col_ids.to(torch.int64), col_masks)
+
+
+def _active_in(p: torch.Tensor, g: torch.Tensor, table: torch.Tensor, K: int) -> torch.Tensor:
+    """Is each presynaptic cell p [n, X] int32, on a row of stream g [n],
+    active in that stream's :func:`_col_table`? -> bool [n, X]. -1 floors
+    to column -1, mapped to the zero fill entry and masked by ``p >= 0``
+    either way."""
+    C1 = table.shape[1]
+    c_pre = torch.div(p, K, rounding_mode="floor")
+    k_pre = p - c_pre * K  # floor remainder: -1 -> K - 1
+    idx = g.to(torch.int64)[:, None] * C1 + torch.where(c_pre < 0, C1 - 1, c_pre).to(torch.int64)
+    msk = table.reshape(-1)[idx]
+    return (p >= 0) & (((msk >> k_pre) & 1) > 0)
+
+
 def presyn_active_packed(presyn: torch.Tensor, col_ids: torch.Tensor,
                          col_masks: torch.Tensor, C: int, K: int) -> torch.Tensor:
     """Is each synapse's presynaptic cell in the packed active set? -> bool,
-    presyn's shape [G, ...]. The set is (col_ids [G, Ac] ascending with C
-    fills, col_masks [G, Ac] K-bit int32 masks, fills 0). A per-stream
-    [C+1] column-mask table (ids are unique, fills C carry mask 0) replaces
-    the JAX package's [..., Ac] compare-and-sum with one gather; -1 floors
-    to column -1, mapped to the zero fill entry and masked by
-    ``presyn >= 0`` either way."""
+    presyn's shape [G, ...]. A per-stream [C+1] column-mask table
+    (:func:`_col_table`) replaces the JAX package's [..., Ac]
+    compare-and-sum with one gather."""
     G = presyn.shape[0]
-    table = torch.zeros((G, C + 1), dtype=torch.int32, device=presyn.device)
-    table.scatter_(1, col_ids.to(torch.int64), col_masks)
-    p = presyn.reshape(G, -1).to(torch.int32)
-    c_pre = torch.div(p, K, rounding_mode="floor")
-    k_pre = p - c_pre * K  # floor remainder: -1 -> K - 1
-    msk = torch.gather(table, 1, torch.where(c_pre < 0, C, c_pre).to(torch.int64))
-    return ((p >= 0) & (((msk >> k_pre) & 1) > 0)).reshape(presyn.shape)
+    g = torch.arange(G, device=presyn.device)
+    act = _active_in(presyn.reshape(G, -1).to(torch.int32), g, _col_table(col_ids, col_masks, C), K)
+    return act.reshape(presyn.shape)
 
 
 def _grow(p, v, n_grow, wids, p_init: float, N: int):
@@ -151,33 +167,32 @@ def _grow(p, v, n_grow, wids, p_init: float, N: int):
     return torch.where(assign, fill, p_out), torch.where(assign, p_init, v)
 
 
-def _plain_rows(presyn, perm, meta, pids, pmasks, wids, aids, amasks, cs: LearnConsts, K, N):
-    """The pass for a slice of streams -> (presyn i32, perm f32, nsyn, conn,
-    pot), the ``_mega_kernel`` stage list."""
-    p = presyn.to(torch.int32)
-    v = perm.to(torch.float32)
-    meta = meta[:, :, None]
+def _plain_rows(p, v, meta, g, ptable, atable, wids, cs: LearnConsts, K, N):
+    """The pass on rows p [n, M] int32 / v [n, M] f32 with their meta
+    words [n], of streams g [n] -> (presyn i32, perm f32, nsyn, conn, pot),
+    the ``_mega_kernel`` stage list."""
+    meta = meta[:, None]
     learn = (meta & 1) > 0
     alloc = ((meta >> 1) & 1) > 0
     grow = ((meta >> 2) & 1) > 0
     punish = ((meta >> 3) & 1) > 0
-    n_grow = (meta >> 4)[:, :, 0]  # [g, R]
+    n_grow = (meta >> 4)[:, 0]  # [n]
 
     # burst-new allocation: clear the allocated segment's slots
     p = torch.where(alloc, -1, p)
     v = torch.where(alloc, 0.0, v)
 
     # reinforce learning segments toward prev-active cells
-    act = presyn_active_packed(p, pids, pmasks, N // K, K)
+    act = _active_in(p, g, ptable, K)
     exists = p >= 0
     x = v + cs.p_inc * act.to(torch.float32) - cs.p_dec * (exists & ~act).to(torch.float32)
     v = torch.where(learn, x.clamp(0.0, cs.p_one), v)
 
     # grow with eviction, on the growing rows only: a row whose grow flag
     # is off or whose n_grow <= 0 adds nothing and evicts nothing
-    rows = (grow[:, :, 0] & (n_grow > 0)).nonzero(as_tuple=True)
-    if rows[0].numel():
-        p[rows], v[rows] = _grow(p[rows], v[rows], n_grow[rows], wids[rows[0]], cs.p_init, N)
+    rows = (grow[:, 0] & (n_grow > 0)).nonzero(as_tuple=True)[0]
+    if rows.numel():
+        p[rows], v[rows] = _grow(p[rows], v[rows], n_grow[rows], wids[g[rows]], cs.p_init, N)
 
     # punish matching segments in non-active columns (pre-grow membership)
     if cs.pdec is not None:
@@ -189,10 +204,17 @@ def _plain_rows(presyn, perm, meta, pids, pmasks, wids, aids, amasks, cs: LearnC
     nsyn = (p >= 0).sum(-1)
 
     # dendrite activity for t+1 on the updated pools
-    dact = presyn_active_packed(p, aids, amasks, N // K, K)
+    dact = _active_in(p, g, atable, K)
     pot = dact.sum(-1)
     conn = (dact & (v >= cs.p_thr)).sum(-1)
     return p, v, nsyn, conn, pot
+
+
+def _rows_needed(presyn: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Rows [G, R] that hold a synapse or carry a learn/alloc/grow/punish
+    bit: on any other row every stage of the pass is a no-op and its counts
+    are 0."""
+    return (presyn >= 0).any(-1) | ((meta & 15) != 0)
 
 
 def _check(presyn, perm, meta, pids, pmasks, wids, aids, amasks):
@@ -219,20 +241,29 @@ def tm_learn_plain(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
                    cs: LearnConsts, K: int, N: int):
     """Plain PyTorch version of the pass. Updates `presyn` [G, R, M] and
     `perm` [G, R, M] in place and returns (nsyn, conn, pot) uint8 [G, R].
-    Streams are processed in slices so temporaries stay bounded at any G."""
+    Like the kernel it reads and writes only the rows that
+    :func:`_rows_needed` picks, in slices of streams so temporaries stay
+    bounded at any G."""
     _check(presyn, perm, meta, pids, pmasks, wids, aids, amasks)
     G, R, M = presyn.shape
-    out = [torch.empty((G, R), dtype=torch.uint8, device=presyn.device) for _ in range(3)]
+    C = N // K
+    out = [torch.zeros((G, R), dtype=torch.uint8, device=presyn.device) for _ in range(3)]
+    ptable, atable = _col_table(pids, pmasks, C), _col_table(aids, amasks, C)
     step = max(1, (1 << 24) // max(1, R * M))
     for g0 in range(0, G, step):
         s = slice(g0, g0 + step)
-        p, v, *counts = _plain_rows(presyn[s], perm[s], meta[s], pids[s], pmasks[s], wids[s],
-                                    aids[s], amasks[s], cs, K, N)
-        presyn[s] = p.to(presyn.dtype)
+        g, r = _rows_needed(presyn[s], meta[s]).nonzero(as_tuple=True)
+        g = g + g0
+        # perm is indexed through its bit view: neither device indexes uint16
+        v = as_bits(perm)[g, r].view(perm.dtype).to(torch.float32)
+        p, v, *counts = _plain_rows(presyn[g, r].to(torch.int32), v, meta[g, r], g,
+                                    ptable, atable, wids, cs, K, N)
+        presyn[g, r] = p.to(presyn.dtype)
         # quantized domains hold integer-valued f32: the int32 hop is exact
-        perm[s] = v if perm.dtype == torch.float32 else v.to(torch.int32).to(perm.dtype)
+        as_bits(perm)[g, r] = as_bits(v if perm.dtype == torch.float32
+                                      else v.to(torch.int32).to(perm.dtype))
         for o, c in zip(out, counts):
-            o[s] = c.to(torch.uint8)
+            o[g, r] = c.to(torch.uint8)
     return tuple(out)
 
 
@@ -250,7 +281,7 @@ def _pass_rows(args, presyn_after, perm_after):
     compared)."""
     presyn, perm, meta = args[0], args[1], args[2]
     has_syn = (presyn >= 0).any(-1)
-    needs_perm = has_syn | ((meta & 15) != 0)
+    needs_perm = _rows_needed(presyn, meta)
     presyn_changed = (as_bits(presyn_after) != as_bits(presyn)).any(-1)
     perm_changed = (as_bits(perm_after) != as_bits(perm)).any(-1)
     return has_syn, needs_perm, presyn_changed, perm_changed

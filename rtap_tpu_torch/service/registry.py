@@ -15,6 +15,13 @@ predictor leaves). :meth:`StreamGroup.collect_chunk` leaves the chunk's
 numpy leaves, with a leading tick axis, in ``last_health`` and
 ``last_predict`` for the host trackers. Model state and scores are the same
 with either on or off.
+
+With ``cfg.classifier.enabled`` each tick also predicts every stream's
+next value (ops/classifier.py): the chunk's predictions [T, G] ride the
+same pinned copy as the scores and land in ``last_predictions``; a
+:class:`TickResult` carries the tick's row. A group's per-stream encoder
+resolutions (``state["enc_resolution"]``, f32 [G, n_fields] on the group's
+device) may be set after construction, as a batched NAB corpus run does.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ class TickResult:
     likelihood: np.ndarray  # [G] f64
     log_likelihood: np.ndarray  # [G] f64
     alerts: np.ndarray  # [G] bool
+    prediction: np.ndarray | None = None  # [G] f32, when the classifier is on
 
 
 PAD_PREFIX = "__pad"
@@ -68,9 +76,6 @@ class StreamGroup:
             raise ValueError(f"debounce must be >= 1, got {debounce}")
         if predict < 0:
             raise ValueError(f"predict horizon must be >= 0, got {predict}")
-        if cfg.classifier.enabled:
-            raise NotImplementedError(
-                "the SDR classifier is not ported yet (ROADMAP.md, port queue A)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the dense SP overlap counts through an f32 product (ops/sp.py)
@@ -86,6 +91,8 @@ class StreamGroup:
         # the last collected chunk's reducer leaves [T, ...] (numpy)
         self.last_health: dict | None = None
         self.last_predict: dict | None = None
+        # the last collected chunk's predicted values [T, G] (classifier only)
+        self.last_predictions: np.ndarray | None = None
         self._alert_run = np.zeros(self.G, np.int64)
         self.likelihood = BatchAnomalyLikelihood(cfg.likelihood, self.G)
         self.ticks = 0
@@ -155,6 +162,15 @@ class StreamGroup:
         self.likelihood.reset_slot(slot)
         self._alert_run[slot] = 0
 
+    def set_enc_resolution(self, resolution: np.ndarray) -> None:
+        """Give each stream its own encoder resolution: `resolution` is
+        [G, n_fields] (f32 after the cast), kept on the group's device."""
+        res = np.asarray(resolution, np.float32)
+        want = tuple(self.state["enc_resolution"].shape)
+        if res.shape != want:
+            raise ValueError(f"enc_resolution must be {want}; got {res.shape}")
+        self.state["enc_resolution"] = torch.from_numpy(res.copy()).to(self.device)
+
     # ---- stepping ----
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))
@@ -191,11 +207,13 @@ class StreamGroup:
             self.state, self._to_device(values), self._to_device(np.asarray(ts, np.int32)),
             self.cfg, learn=learn, tick0=self._tick0, health=self.health,
             predict=bool(self.predict))
-        leaves = {"health": None, "predict": None}
+        leaves = {"health": None, "predict": None, "pred": None}
         if self.predict:  # wraps outermost (ops/step.py)
             out, leaves["predict"] = out
         if self.health:
             out, leaves["health"] = out
+        if self.cfg.classifier.enabled:  # (raw, prediction, probability)
+            out, leaves["pred"] = out[0], out[1]
         leaves["raw"] = out
         done = None
         if self.device.type == "cuda":
@@ -213,7 +231,7 @@ class StreamGroup:
 
     def collect_chunk(self, handle: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Block on a dispatched chunk -> (raw [T, G], log_likelihood [T, G],
-        alerts [T, G])."""
+        alerts [T, G]); classifier predictions land in ``last_predictions``."""
         if handle["seq"] != self._collected + 1:
             raise RuntimeError(
                 f"collect_chunk out of order: handle seq {handle['seq']}, "
@@ -221,12 +239,14 @@ class StreamGroup:
         if handle["done"] is not None:
             handle["done"].synchronize()
         raw = handle["raw"].numpy()
+        pred = None if handle["pred"] is None else handle["pred"].numpy()
         if handle["health"] is not None:
             self.last_health = {k: v.numpy() for k, v in handle["health"].items()}
         if handle["predict"] is not None:
             self.last_predict = {k: v.numpy() for k, v in handle["predict"].items()}
         self._collected = handle["seq"]
         T = handle["T"]
+        self.last_predictions = pred
         self.ticks += T
         lik = np.empty((T, self.G))
         loglik = np.empty((T, self.G))
@@ -234,13 +254,15 @@ class StreamGroup:
         for i in range(T):
             lik[i], loglik[i] = self.likelihood.update(raw[i])
             alerts[i] = self._debounced(loglik[i])
-        self._last_tick = TickResult(raw[-1], lik[-1], loglik[-1], alerts[-1])
+        self._last_tick = TickResult(raw[-1], lik[-1], loglik[-1], alerts[-1],
+                                     None if pred is None else pred[-1])
         return raw, loglik, alerts
 
     def run_chunk(self, values: np.ndarray, ts: np.ndarray,
                   learn: bool = True) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Replay T ticks synchronously: `values` [T, G] or [T, G, n_fields],
-        `ts` [T, G] -> (raw [T, G], log_likelihood [T, G], alerts [T, G])."""
+        `ts` [T, G] -> (raw [T, G], log_likelihood [T, G], alerts [T, G]);
+        with the classifier, predictions [T, G] land in ``last_predictions``."""
         return self.collect_chunk(self.dispatch_chunk(values, ts, learn))
 
     def overflow_total(self) -> int:

@@ -37,6 +37,7 @@ class ReplayResult:
     raw: np.ndarray  # [T, N] f32
     log_likelihood: np.ndarray  # [T, N] f64
     alerts: np.ndarray  # [T, N] bool
+    predictions: np.ndarray | None = None  # [T, N] f32 when the classifier is on
     throughput: dict = field(default_factory=dict)
     registry: StreamGroupRegistry | None = None  # the groups, with their final state
 
@@ -85,6 +86,9 @@ def replay_streams(
     raw = np.full((T, n), np.nan, np.float32)
     loglik = np.full((T, n), np.nan, np.float64)
     alerts = np.zeros((T, n), bool)
+    # NaN-filled like raw: on a resumed run the rows before the resume
+    # point were scored by the earlier run
+    preds = np.full((T, n), np.nan, np.float32) if cfg.classifier.enabled else None
     writer = AlertWriter(alert_path)
     counter = ThroughputCounter()
     resumed_from: dict[str, int] = {}
@@ -130,6 +134,8 @@ def replay_streams(
             raw[t0:t1, lo:lo + live] = r[:, :live]
             loglik[t0:t1, lo:lo + live] = ll[:, :live]
             alerts[t0:t1, lo:lo + live] = al[:, :live]
+            if preds is not None:
+                preds[t0:t1, lo:lo + live] = grp.last_predictions[:, :live]
             counter.add((t1 - t0) * live)
             for i in range(t0, t1):
                 # alert_id group:stream:tick — the replay tick IS the
@@ -178,4 +184,5 @@ def replay_streams(
     if resumed_from:
         stats["resumed_from"] = resumed_from
     return ReplayResult(stream_ids=ids, timestamps=streams[0].timestamps, raw=raw,
-                        log_likelihood=loglik, alerts=alerts, throughput=stats, registry=reg)
+                        log_likelihood=loglik, alerts=alerts, predictions=preds,
+                        throughput=stats, registry=reg)

@@ -151,6 +151,14 @@ def test_kernel_matches_plain(cuda, case):
     assert torch.equal(dev_args[0].cpu(), ref[0]), "presyn"
     # perm bit for bit: torch.equal holds -0.0 equal to +0.0
     assert torch.equal(as_bits(dev_args[1].cpu()), as_bits(ref[1])), "perm"
+    # the plain version on card tensors (chip_smoke times it there): the same
+    tl.reset_launches()
+    on_card = [a.to(cuda) for a in args]
+    for name, a, b in zip(("nsyn", "conn", "pot"), tm_learn_plain(*on_card, cs, K, N), want):
+        assert torch.equal(a.cpu(), b), f"plain on the card: {name}"
+    assert tl.launches == 0
+    assert torch.equal(on_card[0].cpu(), ref[0]), "plain on the card: presyn"
+    assert torch.equal(as_bits(on_card[1].cpu()), as_bits(ref[1])), "plain on the card: perm"
 
 
 def test_live_loop_on_card_matches_cpu(cuda, tmp_path):
@@ -230,3 +238,96 @@ def test_reducer_leaves_on_card_match_cpu(cuda, bits):
     for k in ps:
         assert np.array_equal(cs[k], ps[k], equal_nan=True), k
     assert pl[-1][1]["scored"][:, :6].all() and not pl[-1][1]["scored"][:, 6:].any()
+
+
+def test_kernel_matches_plain_at_nab_corpus_group(cuda):
+    """nab_preset at G = 8 (the batched corpus group: W = 1,280 winners, f32
+    permanences, int32 presyn) after 40 learning ticks: the next learning
+    pass, kernel against plain, bit for bit."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.config import nab_preset
+    from rtap_tpu_torch.models.state import init_state
+    from rtap_tpu_torch.ops.step import chunk_step, next_learn_pass, replicate_state_device
+
+    cfg = nab_preset()
+    G, T = 8, 40
+    rng = np.random.default_rng(3)
+    v = (50 + 10 * np.sin(np.arange(T + 1) / 5.0)[:, None] + rng.normal(0, 2, (T + 1, G)))
+    v = torch.from_numpy(v.astype(np.float32)[:, :, None]).to(cuda)
+    ts = torch.from_numpy((1_700_000_000 + 300 * np.arange(T + 1))[:, None].repeat(G, 1)
+                          .astype(np.int32)).to(cuda)
+    st = replicate_state_device(init_state(cfg, 0), G, cuda)
+    st, _ = chunk_step(st, v[:T], ts[:T], cfg)
+    lp = next_learn_pass(cfg, st, v[T], ts[T])
+    args = lp.args
+    assert args[5].shape[1] == 1280 and args[1].dtype == torch.float32
+    k_pools = [a.clone() for a in args[:2]]
+    p_pools = [a.clone() for a in args[:2]]
+    tl.reset_launches()
+    got = tl.tm_learn_kernel(*k_pools, *args[2:], lp.consts, lp.K, lp.N)
+    want = tl.tm_learn_plain(*p_pools, *args[2:], lp.consts, lp.K, lp.N)
+    torch.cuda.synchronize()
+    assert tl.launches == 1
+    for a, b in zip([*k_pools, *got], [*p_pools, *want]):
+        assert torch.equal(as_bits(a), as_bits(b))
+
+
+@pytest.mark.parametrize("preset", ["composite", "categorical", "classifier"])
+def test_presets_on_card_match_cpu(cuda, preset):
+    """The composite and categorical presets (the delta predecessor
+    included) and cluster_preset with the SDR classifier, 40 learning ticks
+    of 16 streams on the card and on the CPU: raw and every model leaf bit
+    for bit; the classifier's weights at rtol 1e-5 / atol 1e-6 and its
+    predictions and probabilities within 1e-4 (its product and exp are not
+    bit-exact across devices)."""
+    import dataclasses
+
+    from rtap_tpu_torch import config as C
+    from rtap_tpu_torch.models.state import init_state, state_to_numpy
+    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
+
+    cfg = {"composite": C.composite_preset(), "categorical": C.categorical_preset(),
+           "classifier": dataclasses.replace(
+               C.cluster_preset(), classifier=C.ClassifierConfig(enabled=True))}[preset]
+    G, T = 16, 40
+    rng = np.random.default_rng(1)
+    v = (30 + 8 * np.sin(np.arange(T) / 3.0)[:, None] + rng.normal(0, 1.0, (T, G)))
+    v = v.astype(np.float32)[:, :, None]
+    v[10:13, 3] = np.nan
+    ts = (1_700_000_000 + 60 * np.arange(T))[:, None].repeat(G, 1).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = replicate_state_device(init_state(cfg, 2), G, dev)
+        st, o = chunk_step(st, torch.from_numpy(v).to(dev), torch.from_numpy(ts).to(dev), cfg)
+        o = o if isinstance(o, tuple) else (o,)
+        out[dev] = ([x.cpu().numpy() for x in o], state_to_numpy(st))
+    (co, cs), (po, ps) = out["cuda"], out["cpu"]
+    assert np.array_equal(co[0], po[0])
+    for k in ps:
+        if k in ("cls_w", "cls_val"):
+            np.testing.assert_allclose(cs[k], ps[k], rtol=1e-5, atol=1e-6, err_msg=k)
+        else:
+            assert np.array_equal(cs[k], ps[k], equal_nan=True), k
+    for a, b in zip(co[1:], po[1:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    assert ("enc_prev" in ps) == (preset == "composite")
+
+
+def test_htm_model_golden_on_card(cuda):
+    """HTMModel on the card reproduces tests/golden/golden_config1.npz (raw
+    equal, loglik within 1e-12), the golden the JAX package holds itself to."""
+    from pathlib import Path
+
+    from rtap_tpu_torch.config import ModelConfig
+    from rtap_tpu_torch.data.nab_corpus import load_corpus
+    from rtap_tpu_torch.models import AnomalyDetector
+    from tests.golden.generate_golden import golden_config  # imports no jax
+
+    root = Path(__file__).resolve().parent.parent
+    nf = next(f for f in load_corpus(root / "data" / "nab") if "5f5533" in f.name)
+    golden = np.load(root / "tests" / "golden" / "golden_config1.npz")
+    det = AnomalyDetector(ModelConfig.from_dict(golden_config().to_dict()), seed=0, device=cuda)
+    res = [det.model.run(int(nf.timestamps[i]), float(nf.values[i])) for i in range(400)]
+    np.testing.assert_array_equal([r.raw_score for r in res], golden["raw"])
+    np.testing.assert_allclose([r.log_likelihood for r in res], golden["loglik"], rtol=0,
+                               atol=1e-12)

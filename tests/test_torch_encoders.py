@@ -113,13 +113,13 @@ def test_encode_cluster_preset_per_stream_resolution():
 
 
 def test_unported_encoders_raise():
-    from rtap_tpu_torch.config import composite_preset
+    """The composite and classic-scalar families, refused before they were
+    ported, now encode those same records as the JAX package does (their
+    full parity suite is tests/test_torch_composite.py)."""
+    from rtap_tpu.config import ScalarEncoderConfig, composite_preset
 
-    cfg = composite_preset()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode(cfg, torch.zeros((1, 3)), torch.zeros(1, dtype=torch.int32),
-               torch.zeros((1, 3)), torch.ones((1, 3)))
-    scal = dataclasses.replace(pconfig.cluster_preset(), scalar=pconfig.ScalarEncoderConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode(scal, torch.zeros((1, 1)), torch.zeros(1, dtype=torch.int32),
-               torch.zeros((1, 1)), torch.ones((1, 1)))
+    for jcfg, F in ((composite_preset(), 3),
+                    (dataclasses.replace(cluster_preset(), scalar=ScalarEncoderConfig()), 1)):
+        _encode_both(jcfg, np.zeros((1, 1, F), np.float32), np.zeros((1, 1), np.int32),
+                     np.zeros((1, F), np.float32), np.zeros((1, F), bool),
+                     np.asarray(jcfg.field_resolutions(), np.float32)[None])

@@ -13,6 +13,10 @@
 * ``python -m rtap_tpu_torch serve`` over TCP on the CPU (mirroring
   tests/integration/test_cli.py), every unported JAX serve flag refused
   with exit 2, and the refusal without a card.
+* The composite and categorical presets: the JAX live_loop and the port's
+  on the same feed give byte-equal alert lines and bit-equal state (the
+  delta predecessor included); ``serve --preset`` over TCP on the CPU; the
+  JAX package's usage error for ``--columns`` with a non-cluster preset.
 """
 
 import dataclasses
@@ -441,7 +445,7 @@ def _unported_argv():
 
     cases = [(flag, [flag, "1"] if takes_value else [flag])
              for flag, (takes_value, _) in UNPORTED_SERVE_FLAGS.items()]
-    return cases + [("--preset", ["--preset", "nab"]), ("--shard", ["--shard", "1"]),
+    return cases + [("--shard", ["--shard", "1"]),
                     ("--dispatch-threads", ["--dispatch-threads", "4"])]
 
 
@@ -578,3 +582,108 @@ def test_serve_cli_model_side_flags_over_tcp(tmp_path):
     assert json.loads(open(str(alerts) + ".epoch").read())["epoch"] == 1
     tel = {m["name"]: m["value"] for m in stats["telemetry"]["metrics"] if "labels" not in m}
     assert tel["rtap_obs_run_epoch"] == 1 and tel["rtap_obs_health_fold_seconds"]["count"] == 6
+
+
+def _preset_cfgs(name):
+    from rtap_tpu.config import categorical_preset, composite_preset
+
+    jcfg = {"composite": composite_preset, "categorical": categorical_preset}[name]()
+    # a short probation, so alerts flow within the run
+    jcfg = dataclasses.replace(jcfg, likelihood=dataclasses.replace(
+        jcfg.likelihood, learning_period=10, estimation_samples=5))
+    return jcfg, ModelConfig.from_dict(jcfg.to_dict())
+
+
+class CategoryFeed(Feed):
+    """Feed's values as small category ids (rounded in the encoder), with
+    a NaN gap: one wire value per stream, as a serve source delivers."""
+
+    def value(self, sid, g):
+        v = super().value(sid, g)
+        return np.nan if g % 13 == 7 else np.floor(v / 9.0)
+
+
+@pytest.mark.parametrize("name", ["composite", "categorical"])
+def test_live_loop_preset_matches_jax(tmp_path, name):
+    """serve --preset composite|categorical's loop (one wire value per
+    stream, read by every field) on both packages: alert lines byte-equal,
+    state bit-equal."""
+    jcfg, cfg = _preset_cfgs(name)
+    feed_cls = CategoryFeed if name == "categorical" else Feed
+    out = {}
+    for pkg in ("jax", "torch"):
+        if pkg == "jax":
+            reg = JReg(jcfg, group_size=3, backend="tpu", threshold=THRESHOLD, debounce=2)
+            loop = j_live_loop
+        else:
+            reg = StreamGroupRegistry(cfg, group_size=3, device="cpu", threshold=THRESHOLD,
+                                      debounce=2)
+            loop = live_loop
+        for sid in IDS:
+            reg.add_stream(sid)
+        reg.finalize()
+        stats = loop(feed_cls(reg.dispatch_ids()), reg, n_ticks=30, cadence_s=0.0,
+                     alert_path=str(tmp_path / pkg), pipeline_depth=2)
+        out[pkg] = (stats, reg, _alert_lines(tmp_path / pkg))
+    (js, jreg, jlines), (ts, treg, tlines) = out["jax"], out["torch"]
+    assert tlines == jlines and len(tlines) > 0
+    assert ts["scored"] == js["scored"] and ts["alerts"] == js["alerts"]
+    for jg, tg in zip(jreg.groups, treg.groups):
+        a, b = _state("jax", jg), _state("torch", tg)
+        _assert_states_equal(a, b)
+        assert ("model/enc_prev" in b) == (name == "composite")
+
+
+@pytest.mark.parametrize("preset", ["composite", "categorical"])
+def test_serve_cli_preset_over_tcp(tmp_path, preset):
+    from rtap_tpu_torch.service.sources import send_jsonl
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rtap_tpu_torch", "serve", "--streams", "a,b,c",
+         "--preset", preset, "--ticks", "4", "--cadence", "0.2", "--device", "cpu",
+         "--port", "0", "--alerts", str(tmp_path / "alerts.jsonl")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    port, lines = [], []
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line)
+            if "listening for JSONL records on" in line:
+                port.append(int(line.rsplit(":", 1)[1]))
+
+    threading.Thread(target=read_stderr, daemon=True).start()
+    deadline = time.time() + 120
+    while not port and time.time() < deadline and proc.poll() is None:
+        time.sleep(0.05)
+    assert port, (proc.poll(), "".join(lines)[-2000:])
+    stop = threading.Event()
+
+    def produce():
+        k = 0
+        while not stop.is_set():
+            send_jsonl(("127.0.0.1", port[0]), [
+                {"id": sid, "value": float((k + i) % 5), "ts": 1_700_000_000 + k}
+                for i, sid in enumerate("abc")])
+            k += 1
+            time.sleep(0.05)
+
+    threading.Thread(target=produce, daemon=True).start()
+    out, _ = proc.communicate(timeout=300)
+    stop.set()
+    assert proc.returncode == 0, "".join(lines)[-2000:]
+    stats = json.loads(out.strip().splitlines()[-1])
+    assert stats["preset"] == preset and stats["device"] == "cpu"
+    assert stats["ticks"] == 4 and stats["scored"] == 12 and stats["parse_errors"] == 0
+    assert stats["tm_overflow_total"] == 0
+
+
+@pytest.mark.parametrize("preset", ["nab", "composite", "categorical"])
+def test_serve_preset_with_columns_is_the_jax_usage_error(capsys, preset):
+    from rtap_tpu.__main__ import main as j_main
+    from rtap_tpu_torch.__main__ import main
+
+    argv = ["serve", "--streams", "a", "--preset", preset, "--columns", "32"]
+    assert j_main(argv) == 2
+    want = capsys.readouterr().err
+    assert main([*argv, "--device", "cpu"]) == 2
+    assert capsys.readouterr().err == want and "--columns applies to the cluster" in want
