@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay, serve, NAB and model paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve, NAB, model and eval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T]
 
@@ -15,8 +15,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    full); then the same on a dense random state at the main path's
    per-stream shape (n_seg = 4096, M = 12, int16/u16, G = 2,048); then
    learned states at the group sizes of phases 6 and 7 (G = 4,096 and
-   1,024), and at the shapes of phases 11 and 14 (nab_preset at G = 8,
-   composite and categorical presets at G = 64).
+   1,024), at the shapes of phases 11 and 14 (nab_preset at G = 8,
+   composite and categorical presets at G = 64), and at the evals' (one
+   group of 1,000 cluster streams; node_preset(3), the dense S = 4
+   geometry, at G = 12 on fused node data).
 4. the slice: ``replay_streams`` on cuda, cluster preset, G streams in one
    group, T ticks in chunks of 64 with learning, synthetic cluster data from
    --seed. The kernel's launch count must equal the learning ticks, raw must
@@ -35,9 +37,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    past tick 0, every record sent parsed, no parse errors or unknown ids, no
    capacity overflow, both checkpoint rounds saved, its telemetry registry
    agreeing with its stats, and one kernel launch per group per tick (the
-   child's own counts, from 0). Tick latency, missed deadlines, per-phase
-   ms, seconds per group save, parse rate and peak device memory are
-   reported, not gated.
+   child's own counts, from 0). Only tick 0 and the two save ticks (19 and
+   39) may miss the 1 s deadline: the missed_tick events are read from the
+   child's alert stream and each is gated, its phase split reported. Tick
+   latency, per-phase ms, seconds per group save, parse rate and peak
+   device memory are reported, not gated.
 7. kill -9 drill: this script's hidden ``--child`` mode runs the port's
    ``live_loop`` (2,048 streams in 2 groups, 96 ticks at cadence 0,
    checkpoints every 16 ticks, journal on, a seeded source keyed by the
@@ -96,6 +100,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    cadence: every tick after tick 0 under 1 s, values missing only at tick
    0, well-formed alert lines, one launch per group per learning tick; peak
    device memory reported.
+15. ``python -m rtap_tpu_torch eval`` (its main, in this process) on the
+   card: (a) tests/integration/test_fault_eval.py's fixture shape, 40 x
+   1,000, window, streaming and streaming with learn-every 2, each held to
+   that file's floors and to one launch per learning tick; (b) 12 streams x
+   1,000 on the card and the CPU, reports equal but for wall-clock
+   entries; (c) the committed artifacts' shape, 120 x 1,500, streaming and
+   window: the per-kind and overall event counts equal
+   reports/fault_eval.json / _window.json's (quality printed beside them);
+   (d) BASELINE config 3, 1,000 streams x 1,500 in one group, streaming:
+   1,500,000 scored, 1,500 launches, the floors; wall, replay and sweep
+   seconds, metrics/s and peak device memory reported.
+16. ``python -m rtap_tpu_torch.eval.workload_eval`` on the card at 12
+   streams x 900 (seed 11): exit 0 with the composite gate held, 4 x 900
+   launches, every modality's at_best beside reports/workloads_r09.json;
+   the log-template modality at 4 streams on the card and the CPU: equal.
+17. ``python -m rtap_tpu_torch.eval.node_eval`` on the card at 12 nodes x
+   1,400: the coupled and single event counts equal
+   reports/multivariate_node.json's, 1,400 launches; 2 nodes x 400 on the
+   card and the CPU: raw and loglik equal. One held-out cell
+   (preset_256col, magnitude 6, seed 11, 40 x 1,000): its events the
+   generator's, 1,000 launches.
+18. ``python -m rtap_tpu_torch report`` on the card with 15(c)'s streaming
+   report: both PNGs written. Where matplotlib is not installed, a line
+   says so and the report's replay runs on the card and the CPU instead:
+   raw and loglik equal. 900 launches either way.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -143,6 +172,32 @@ CLS_STREAMS, CLS_TICKS = 64, 64  # phase 13
 # phase 14: (preset, streams, group size, ticks)
 PRESET_SERVES = (("nab", 64, 64, 30), ("composite", 4096, 4096, 20),
                  ("categorical", 4096, 4096, 20))
+EVAL_1K_STREAMS, NODE_STREAMS = 1000, 12  # phase 3's eval and node rows
+# phase 15: (streams, ticks) of tests/integration/test_fault_eval.py's
+# fixture, of reports/fault_eval*.json, and of BASELINE config 3
+EVAL_FIXTURE, EVAL_ARTIFACT, EVAL_1K = (40, 1000), (120, 1500), (EVAL_1K_STREAMS, 1500)
+EVAL_CPU_STREAMS = 12
+# tests/integration/test_fault_eval.py's floors
+WINDOW_FLOORS = {"at_best": {"f1": 0.60, "recall": 0.80, "precision": 0.50},
+                 "at_default": {"f1": 0.55, "recall": 0.70}}
+MAX_MEDIAN_LATENCY_S = 10.0  # at_best, with WINDOW_FLOORS
+STREAMING_FLOORS = {"at_best": {"f1": 0.80, "recall": 0.82, "precision": 0.77},
+                    "at_default": {"precision": 0.85, "recall": 0.45}}
+K2_FLOORS = {"at_best": {"f1": 0.78, "recall": 0.76, "precision": 0.79}}
+# 1,000 streams, streaming. At the F1-optimal point: the window fixture's
+# f1 floor and test_fault_eval.py's target for the artifact's scale
+# (precision >= 0.70 at recall >= 0.75; the window fixture's recall 0.80 is
+# a 40-stream floor, and the JAX package itself gives 0.798 here). At the
+# service default, the streaming fixture's floors (a streaming run leans
+# precision-first there: the 120-stream artifact's default recall is 0.575).
+EVAL_1K_FLOORS = {"at_best": {"f1": WINDOW_FLOORS["at_best"]["f1"], "recall": 0.75,
+                              "precision": 0.70},
+                  "at_default": STREAMING_FLOORS["at_default"]}
+WALL_CLOCK = ("elapsed_s", "metrics_per_sec")
+WORKLOAD_SHAPE = (12, 900, 11)  # phase 16: reports/workloads_r09.json's
+NODE_SHAPE, NODE_CPU = (12, 1400), (2, 400)  # phase 17
+HELDOUT_CELL = ("preset_256col", 6.0, 11, 40, 1000)  # variant, magnitude, seed, streams, ticks
+REPORT_TICKS = 900  # phase 18: the report's replay, one group
 
 
 def emit(phase: str, **kw) -> None:
@@ -181,13 +236,22 @@ def pass_ops(args, Ac: int, N: int) -> int:
 
 def learned_state(cfg, G: int, ticks: int, seed: int):
     """The next tick's learning pass for a [G, ...] state after `ticks`
-    real learning ticks on synthetic cluster data."""
-    from rtap_tpu_torch.data.synthetic import cluster_streams
+    real learning ticks on synthetic cluster data (fused cpu/mem/net nodes
+    for a multivariate node config; a composite config reads one wire value
+    per stream, as serve feeds it)."""
+    from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, cluster_streams, generate_node
     from rtap_tpu_torch.models.state import init_state
     from rtap_tpu_torch.ops.step import chunk_step, next_learn_pass, replicate_state_device
 
-    streams = cluster_streams(G, ticks + 1, seed, n_anomalies=0)
-    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None]).cuda()
+    if cfg.n_fields == 1 or cfg.composite is not None:
+        streams = cluster_streams(G, ticks + 1, seed, n_anomalies=0)
+        values = np.stack([s.values for s in streams], 1)[:, :, None]
+    else:
+        scfg = SyntheticStreamConfig(length=ticks + 1, n_anomalies=0, noise_phi=0.97,
+                                     noise_scale=0.5)
+        streams = [generate_node(f"node{i:05d}", scfg, seed=seed + i) for i in range(G)]
+        values = np.stack([s.values for s in streams], 1)
+    vals = torch.from_numpy(values).cuda()
     ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).cuda()
     st = replicate_state_device(init_state(cfg, seed), G, "cuda")
     st, _ = chunk_step(st, vals[:ticks], ts[:ticks], cfg)
@@ -473,6 +537,18 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
     return json.loads(out.strip().splitlines()[-1]), sent, "".join(err_lines)
 
 
+def _missed_ticks(alerts_path: str) -> list[tuple[int, float]]:
+    """(tick, elapsed_s) of every missed_tick event on an alert stream."""
+    missed = []
+    with open(alerts_path) as f:
+        for line in f:
+            if line.startswith('{"event"'):
+                ev = json.loads(line)
+                if ev["event"] == "missed_tick":
+                    missed.append((ev["tick"], ev["elapsed_s"]))
+    return missed
+
+
 def _serve_feed(seed: int, ts0: int | None = None, n_streams: int = SERVE_STREAMS,
                 n_ticks: int = SERVE_TICKS, value=float):
     """Seeded synthetic cluster values for `n_streams` streams -> (their
@@ -503,10 +579,13 @@ def phase_serve(seed: int, card: str) -> dict:
         stats, sent, _ = _serve_child(ids, ticks, work, [
             "--checkpoint-dir", ck_dir, "--checkpoint-every", str(SERVE_CHECKPOINT_EVERY)])
         ck_bytes = _tree_bytes(ck_dir)
+        missed = _missed_ticks(os.path.join(work, "alerts.jsonl"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tel = _telemetry(stats)
     groups = SERVE_STREAMS // SERVE_GROUP
+    # tick k saves when k + 1 is a multiple of SERVE_CHECKPOINT_EVERY (19, 39)
+    save_ticks = {k for k in range(SERVE_TICKS) if (k + 1) % SERVE_CHECKPOINT_EVERY == 0}
     checks = {
         "ticks": stats["ticks"] == SERVE_TICKS,
         "scored": stats["scored"] == SERVE_TICKS * SERVE_STREAMS,
@@ -527,10 +606,15 @@ def phase_serve(seed: int, card: str) -> dict:
                      == (stats["ticks"], stats["scored"], stats["records_parsed"]),
         # the child's own launch count, from 0 in that fresh process
         "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * SERVE_TICKS,
+        # only tick 0 (module loading, first allocations) and the save ticks
+        # may miss the 1 s deadline; the stats' count agrees with the events
+        "missed_ticks": all(t == 0 or t in save_ticks for t, _ in missed)
+                        and len(missed) == stats["missed_deadlines"],
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"serve checks failed {bad} (records sent {sent}): "
+        raise AssertionError(f"serve checks failed {bad} (records sent {sent}, missed {missed}, "
+                             f"their phase ms {stats.get('missed_tick_phase_ms')}): "
                              f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
     row = dict(preset="cluster_preset", streams=SERVE_STREAMS, group_size=SERVE_GROUP,
                groups=groups, ticks=stats["ticks"], cadence_s=stats["cadence_s"],
@@ -539,7 +623,8 @@ def phase_serve(seed: int, card: str) -> dict:
                alerts=stats["alerts"],
                latency_p50_ms=stats["latency_p50_ms"], latency_p90_ms=stats["latency_p90_ms"],
                latency_p99_ms=stats["latency_p99_ms"], latency_max_ms=stats["latency_max_ms"],
-               missed_deadlines=stats["missed_deadlines"],
+               missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
+               missed_tick_phase_ms=stats["missed_tick_phase_ms"], save_ticks=sorted(save_ticks),
                phase_ms_per_tick=stats["phase_ms_per_tick"],
                checkpoint_every=SERVE_CHECKPOINT_EVERY,
                checkpoints_saved=stats["checkpoints_saved"],
@@ -1351,6 +1436,337 @@ def phase_serve_presets(seed: int, card: str) -> dict:
     return rows
 
 
+def _in_process(fn, argv: list[str]) -> tuple[float, int]:
+    """An entry point's ``main(argv)`` in this process, its stdout (the
+    report) kept off this script's -> (seconds, TM learning-kernel launches
+    from 0); raises unless it returns 0."""
+    import contextlib
+    import io
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+
+    buf = io.StringIO()
+    tl.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"{getattr(fn, '__module__', fn)} {argv} returned {rc}")
+    return time.perf_counter() - t0, tl.launches
+
+
+def _learning_ticks(cfg, T: int) -> int:
+    """Ticks of a T-tick replay on which the TM learns (one kernel launch
+    per group each)."""
+    return sum(bool(cfg.learns_on(t)) for t in range(T)) if cfg.cadence_active else T
+
+
+def _below(rep: dict, floors: dict, max_latency_s: float | None = None) -> list[str]:
+    """Each `floors` entry {operating point: {metric: floor}} the report is
+    under, and an at_best median latency above `max_latency_s`."""
+    bad = [f"{op}.{k} {rep[op][k]} < {v}" for op, fl in floors.items()
+           for k, v in fl.items() if rep[op][k] < v]
+    lat = rep["at_best"]["median_latency_s"]
+    if max_latency_s is not None and (lat is None or lat > max_latency_s):
+        bad.append(f"at_best.median_latency_s {lat} > {max_latency_s}")
+    return bad
+
+
+def _per_kind_below(rep: dict) -> list[str]:
+    """test_fault_eval.py::test_per_kind_recall_and_lead: each kind covered
+    by 10 events, recall 0.70, alerts before its window closes."""
+    return [f"per_kind {kind} {v}" for kind, v in rep["per_kind"].items()
+            if v["events"] < 10 or v["recall"] < 0.70 or not (v["median_lead_s"] or 0) > 0]
+
+
+def _strip_wall_clock(rep):
+    """A report with every throughput's wall-clock entries dropped."""
+    if isinstance(rep, dict):
+        return {k: ({kk: vv for kk, vv in v.items() if kk not in WALL_CLOCK}
+                    if k == "throughput" else _strip_wall_clock(v)) for k, v in rep.items()}
+    return rep
+
+
+def _event_counts(streams) -> dict:
+    """Injected fault events by kind, counted from the generator's streams."""
+    out: dict = {}
+    for s in streams:
+        for ev in s.events:
+            out[ev.kind] = out.get(ev.kind, 0) + 1
+    return out
+
+
+def phase_eval(card: str, work: str) -> dict:
+    """``python -m rtap_tpu_torch eval`` (its main, in this process) on the
+    card: (a) tests/integration/test_fault_eval.py's fixture shape and floors,
+    (b) card == CPU at 12 streams, (c) the committed artifacts' shape, their
+    event counts a gate, (d) BASELINE config 3's 1,000 streams."""
+    from rtap_tpu_torch.__main__ import main as cli
+    from rtap_tpu_torch.eval.fault_eval import eval_config, fault_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(tag, streams, length, *flags, device="cuda"):
+        out = os.path.join(work, f"eval_{tag}.json")
+        secs, launches = _in_process(cli, ["eval", "--device", device, "--streams", str(streams),
+                                           "--length", str(length), "--out", out, *flags])
+        with open(out) as f:
+            return json.load(f), secs, launches, out
+
+    def headline(rep):
+        b = rep["at_best"]
+        return dict(f1=b["f1"], precision=b["precision"], recall=b["recall"],
+                    best_threshold=rep["best_threshold"], best_debounce=rep["best_debounce"],
+                    tm_overflow_total=rep["throughput"]["tm_overflow_total"])
+
+    row: dict = {}
+    launches_by = {"eval_fixture": 0, "eval_artifact": 0}
+    # (a) the fixture: 40 x 1,000, window and streaming, and k = 2
+    streams, length = EVAL_FIXTURE
+    fixture, failed = {}, {}
+    for tag, mode, k, floors in (("window", "window", 1, WINDOW_FLOORS),
+                                 ("streaming", "streaming", 1, STREAMING_FLOORS),
+                                 ("streaming_k2", "streaming", 2, K2_FLOORS)):
+        rep, secs, launches, _ = run(tag, streams, length, "--likelihood", mode,
+                                     "--learn-every", str(k))
+        bad = _below(rep, floors, MAX_MEDIAN_LATENCY_S if tag == "window" else None)
+        if tag == "window":
+            bad += _per_kind_below(rep)
+        want = _learning_ticks(eval_config(likelihood=mode, learn_every=k), length)
+        if launches != want:
+            bad.append(f"launches {launches} != {want} learning ticks")
+        if rep["throughput"]["scored"] != streams * length:
+            bad.append(f"scored {rep['throughput']['scored']}")
+        if bad:
+            failed[tag] = bad
+        fixture[tag] = dict(headline(rep), at_default=rep["at_default"], seconds=secs,
+                            launches=launches, metrics_per_sec=rep["throughput"]["metrics_per_sec"],
+                            per_kind=rep["per_kind"])
+        launches_by["eval_fixture"] += launches
+    if not fixture["streaming_k2"]["f1"] < fixture["streaming"]["f1"]:
+        failed["streaming_k2"] = ["learn-every 2 did not lower f1: learning not thinned"]
+    emit("eval_fixture", streams=streams, length=length, runs=fixture, card=card)
+    if failed:
+        raise AssertionError(f"eval fixture failed: {failed}")
+
+    # (b) card == CPU at 12 streams x 1,000, streaming
+    reps = {dev: run(f"cpu_check_{dev}", EVAL_CPU_STREAMS, length, device=dev)
+            for dev in ("cuda", "cpu")}
+    if _strip_wall_clock(reps["cuda"][0]) != _strip_wall_clock(reps["cpu"][0]):
+        raise AssertionError(f"eval card vs CPU differ: {reps['cuda'][0]['at_best']} vs "
+                             f"{reps['cpu'][0]['at_best']}")
+    emit("eval_card_vs_cpu", streams=EVAL_CPU_STREAMS, length=length, reports_equal=True,
+         card_s=reps["cuda"][1], cpu_s=reps["cpu"][1], card=card)
+
+    # (c) the committed artifacts' shape, 120 x 1,500; their event counts are
+    # the numpy generator's alone, so they gate
+    streams, length = EVAL_ARTIFACT
+    artifact = {}
+    for tag, mode, name in (("streaming", "streaming", "fault_eval.json"),
+                            ("window", "window", "fault_eval_window.json")):
+        rep, secs, launches, out = run(f"artifact_{tag}", streams, length, "--likelihood", mode)
+        with open(os.path.join(here, "reports", name)) as f:
+            ref = json.load(f)  # the JAX package's run on a TPU: quality only
+        events = {k: v["events"] for k, v in rep["per_kind"].items()}
+        ref_events = {k: v["events"] for k, v in ref["per_kind"].items()}
+        artifact[tag] = dict(port=headline(rep), artifact=f"reports/{name}",
+                             artifact_headline=headline(ref), events=events,
+                             seconds=secs, metrics_per_sec=rep["throughput"]["metrics_per_sec"],
+                             at_default=rep["at_default"],
+                             per_kind={k: v["recall"] for k, v in rep["per_kind"].items()})
+        if events != ref_events or rep["at_best"]["events"] != ref["at_best"]["events"] \
+                or launches != length:
+            failed[tag] = f"events {events} vs {ref_events}, launches {launches}"
+        launches_by["eval_artifact"] += launches
+        if tag == "streaming":
+            row["artifact_report_path"] = out
+    emit("eval_artifact", streams=streams, length=length, runs=artifact, card=card)
+    if failed:
+        raise AssertionError(f"eval at the artifact's shape failed: {failed}")
+
+    # (d) BASELINE config 3: 1,000 streams x 1,500 ticks, streaming, one group
+    streams, length = EVAL_1K
+    t0 = time.perf_counter()
+    gen_events = _event_counts(fault_streams(streams, length, ("spike", "level_shift", "dropout"),
+                                             6.0, eval_config(likelihood="streaming"), 11,
+                                             "diurnal"))
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rep, secs, launches, _ = run("1k", streams, length)
+    peak = torch.cuda.max_memory_allocated()
+    tp = rep["throughput"]
+    # the port's chunk_step steps a short last chunk's own ticks (1,500 =
+    # 5 x 256 + 220): no padding tick launches, one launch per learning tick
+    bad = _below(rep, EVAL_1K_FLOORS, MAX_MEDIAN_LATENCY_S)
+    if tp["scored"] != streams * length:
+        bad.append(f"scored {tp['scored']} != {streams * length}")
+    if launches != length:
+        bad.append(f"launches {launches} != {length}")
+    events = {k: v["events"] for k, v in rep["per_kind"].items()}
+    if events != gen_events:
+        bad.append(f"events {events} != the generator's {gen_events}")
+    emit("eval_1k", streams=streams, length=length, wall_s=secs, replay_s=tp["elapsed_s"],
+         generate_s=gen_s, sweep_s=secs - tp["elapsed_s"] - gen_s,
+         metrics_per_sec=tp["metrics_per_sec"], scored=tp["scored"], kernel_launches=launches,
+         max_memory_allocated=peak, at_best=rep["at_best"], at_default=rep["at_default"],
+         **headline(rep), per_kind=rep["per_kind"], kind_thresholds=rep["kind_thresholds"],
+         card=card)
+    if bad:
+        raise AssertionError(f"eval at 1,000 streams failed: {bad}")
+    launches_by["eval_1k"] = launches
+    row["launches_by_path"] = launches_by
+    return row
+
+
+def phase_workloads(card: str, work: str) -> dict:
+    """``python -m rtap_tpu_torch.eval.workload_eval`` on the card at the
+    committed artifact's shape (12 streams x 900, seed 11), each modality's
+    at_best beside reports/workloads_r09.json; then the log-template
+    modality at 4 streams on the card and the CPU."""
+    from rtap_tpu_torch.eval import workload_eval as we
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, "workloads.json")
+    streams, length, seed = WORKLOAD_SHAPE
+    secs, launches = _in_process(we.main, ["--device", "cuda", "--streams", str(streams),
+                                           "--length", str(length), "--seed", str(seed),
+                                           "--out", out])
+    with open(out) as f:
+        rep = json.load(f)
+    with open(os.path.join(here, "reports", "workloads_r09.json")) as f:
+        ref = json.load(f)  # the JAX package's CPU oracle
+    # categorical, log template, scalar and composite: one group each, every tick learning
+    want = 4 * length
+    if not rep["composite_vs_scalar"]["gate_composite_no_worse"] or launches != want:
+        raise AssertionError(f"workloads failed: gate {rep['composite_vs_scalar']}, launches "
+                             f"{launches} != {want}")
+
+    def best(r):
+        return {"categorical": r["categorical"]["at_best"],
+                "log_template": r["log_template"]["at_best"],
+                "scalar": r["composite_vs_scalar"]["scalar"]["at_best"],
+                "composite": r["composite_vs_scalar"]["composite"]["at_best"]}
+
+    port, oracle = best(rep), best(ref)
+    t0 = time.perf_counter()
+    runs = {dev: we.run_log_template_eval(n_streams=4, length=length, device=dev, seed=seed)
+            for dev in ("cuda", "cpu")}
+    if _strip_wall_clock(runs["cuda"]) != _strip_wall_clock(runs["cpu"]):
+        raise AssertionError(f"log template card vs CPU differ: {runs['cuda']['at_best']} vs "
+                             f"{runs['cpu']['at_best']}")
+    row = dict(streams=streams, length=length, seed=seed, seconds=secs, kernel_launches=launches,
+               gate_composite_no_worse=True, at_best=port, artifact="reports/workloads_r09.json",
+               artifact_at_best=oracle,
+               differs_from_artifact=[k for k in port if port[k] != oracle[k]],
+               log_template_card_vs_cpu=dict(streams=4, reports_equal=True,
+                                             seconds=time.perf_counter() - t0),
+               card=card)
+    emit("workloads", **row)
+    return row
+
+
+def phase_node_heldout(card: str, work: str) -> dict:
+    """``python -m rtap_tpu_torch.eval.node_eval`` on the card at the
+    committed artifact's shape (its coupled and single event counts a
+    gate); node card == CPU at 2 nodes x 400; one held-out cell."""
+    import dataclasses
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.data.synthetic import ANOMALY_KINDS
+    from rtap_tpu_torch.eval import heldout_eval, node_eval
+    from rtap_tpu_torch.eval.fault_eval import fault_streams, run_fault_eval
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, "node.json")
+    nodes, length = NODE_SHAPE
+    secs, launches = _in_process(node_eval.main, ["--device", "cuda", "--nodes", str(nodes),
+                                                  "--length", str(length), "--out", out])
+    with open(out) as f:
+        rep = json.load(f)
+    with open(os.path.join(here, "reports", "multivariate_node.json")) as f:
+        ref = json.load(f)  # the JAX package's run: quality only
+    events = {k: v["events"] for k, v in rep["shapes"].items()}
+    ref_events = {k: v["events"] for k, v in ref["shapes"].items()}
+    if events != ref_events or launches != length:
+        raise AssertionError(f"node eval: events {events} vs {ref_events}, launches {launches}")
+    n_cpu, t_cpu = NODE_CPU
+    t0 = time.perf_counter()
+    small = {dev: node_eval.run_node_eval(n_cpu, t_cpu, device=dev) for dev in ("cuda", "cpu")}
+    node_cpu_s = time.perf_counter() - t0
+    for k in ("raw", "loglik"):
+        if not np.array_equal(small["cuda"][k], small["cpu"][k]):
+            raise AssertionError(f"node eval card vs CPU: {k} differs")
+    if small["cuda"]["shapes"] != small["cpu"]["shapes"]:
+        raise AssertionError("node eval card vs CPU: shapes differ")
+
+    name, mag, seed, streams, hlen = HELDOUT_CELL
+    cfg = heldout_eval._cfg(*heldout_eval.VARIANTS[name])
+    tl.reset_launches()
+    t0 = time.perf_counter()
+    hrep = dataclasses.asdict(run_fault_eval(n_streams=streams, length=hlen, kinds=ANOMALY_KINDS,
+                                             magnitude=mag, cfg=cfg, device="cuda", seed=seed,
+                                             family="heldout"))
+    torch.cuda.synchronize()
+    h_s, h_launches = time.perf_counter() - t0, tl.launches
+    gen = _event_counts(fault_streams(streams, hlen, ANOMALY_KINDS, mag, cfg, seed, "heldout"))
+    h_events = {k: v["events"] for k, v in hrep["per_kind"].items()}
+    if h_events != gen or h_launches != hlen:
+        raise AssertionError(f"held-out cell: events {h_events} vs the generator's {gen}, "
+                             f"launches {h_launches}")
+    row = dict(node=dict(nodes=nodes, length=length, seconds=secs, kernel_launches=launches,
+                         shapes=rep["shapes"], artifact="reports/multivariate_node.json",
+                         artifact_shapes=ref["shapes"],
+                         card_vs_cpu=dict(nodes=n_cpu, length=t_cpu, raw_equal=True,
+                                          loglik_equal=True, seconds=node_cpu_s)),
+               heldout=dict(cell=f"{name}|mag{mag:g}|seed{seed}", streams=streams, length=hlen,
+                            summary=heldout_eval.cell_summary(hrep), events=h_events,
+                            events_equal_generator=True, seconds=h_s, kernel_launches=h_launches),
+               card=card)
+    emit("node_heldout", **row)
+    return row
+
+
+def phase_report(card: str, work: str, eval_report: str) -> dict:
+    """``python -m rtap_tpu_torch report`` on the card with phase 15's
+    streaming artifact-shape report; where matplotlib is not installed, the
+    report's replay (``report_data``) on the card, held equal to the CPU's."""
+    import importlib.util
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.__main__ import main as cli
+    from rtap_tpu_torch.eval import report
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        out = os.path.join(work, "report")
+        secs, launches = _in_process(cli, ["report", "--device", "cuda", "--out-dir", out,
+                                           "--eval-report", eval_report])
+        sizes = {n: os.path.getsize(os.path.join(out, n)) for n in ("overlay.png", "fault_eval.png")}
+        magic = {n: open(os.path.join(out, n), "rb").read(8) for n in sizes}
+        if sizes["overlay.png"] <= 20_000 or sizes["fault_eval.png"] <= 5_000 \
+                or set(magic.values()) != {b"\x89PNG\r\n\x1a\n"} or launches != REPORT_TICKS:
+            raise AssertionError(f"report: sizes {sizes}, magic {magic}, launches {launches}")
+        row = dict(rendered=True, png_bytes=sizes, seconds=secs, kernel_launches=launches)
+    else:
+        print(json.dumps({"phase": "report", "rendered": False,
+                          "why": "matplotlib is not installed"}), flush=True)
+        tl.reset_launches()
+        t0 = time.perf_counter()
+        _, res = report.report_data(device="cuda")
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t0, tl.launches
+        _, cpu = report.report_data(device="cpu")
+        if not (np.array_equal(res.raw, cpu.raw) and np.array_equal(res.log_likelihood,
+                                                                    cpu.log_likelihood)) \
+                or launches != REPORT_TICKS:
+            raise AssertionError(f"report_data card vs CPU differ (launches {launches})")
+        row = dict(rendered=False, streams=res.raw.shape[1], ticks=res.raw.shape[0],
+                   raw_equal_cpu=True, loglik_equal_cpu=True, seconds=secs,
+                   kernel_launches=launches)
+    emit("report_run", **row, card=card)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1370,10 +1786,18 @@ def main() -> int:
         return run_drill_child(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rtap_tpu_torch.config import (categorical_preset, cluster_preset, composite_preset,
-                                       nab_preset)
+                                       nab_preset, node_preset)
     from rtap_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    seconds: dict = {}  # wall seconds of each phase
+    last = [t_start]
+
+    def mark(n: int) -> None:
+        now = time.perf_counter()
+        seconds[n] = round(now - last[0], 3)
+        last[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1395,55 +1819,98 @@ def main() -> int:
          ptxas=sorted({ln.split("Used", 1)[1].strip() for ln in out.splitlines() if "Used" in ln}
                       | {ln.strip() for ln in out.splitlines()
                          if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln}))
+    mark(2)
 
+    cmp_rows = []
     # 3. kernel vs plain on learned states
-    cmp_rows = [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
-                for label, cfg, G in (("cluster_u16", cluster_preset(), 64),
-                                      ("cluster_f32", cluster_preset(perm_bits=0), 64),
-                                      ("nab", nab_preset(), 1))]
+    cmp_rows += [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
+                 for label, cfg, G in (("cluster_u16", cluster_preset(), 64),
+                                       ("cluster_f32", cluster_preset(perm_bits=0), 64),
+                                       ("nab", nab_preset(), 1))]
     cmp_rows.append(phase_dense(DENSE_STREAMS, args.seed, smi))
     # ... at the group shapes the serve and drill paths (phases 6-7) give it
     cmp_rows += [phase_compare(label, cluster_preset(), G, args.warm_ticks, args.seed, smi)
                  for label, G in (("cluster_u16_serve_group", SERVE_GROUP),
                                   ("cluster_u16_drill_group", DRILL_GROUP))]
-    # ... and at the shapes of phases 11 and 14
+    # ... at the shapes of phases 11 and 14
     cmp_rows += [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
                  for label, cfg, G in (("nab_corpus_group", nab_preset(), 8),
                                        ("composite_u16", composite_preset(), 64),
                                        ("categorical_u16", categorical_preset(), 64))]
+    # ... and at the evals' (phases 15 and 17): one group of 1,000
+    # cluster streams, and the node eval's dense S = 4 geometry
+    cmp_rows += [phase_compare(label, cfg, G, args.warm_ticks, args.seed, smi)
+                 for label, cfg, G in (("cluster_u16_eval_1k", cluster_preset(),
+                                        EVAL_1K_STREAMS),
+                                       ("node_u16", node_preset(3), NODE_STREAMS))]
     torch.cuda.empty_cache()
+    mark(3)
     rows = {}
     # 4. the slice, then the kernel at the main path's own shape
     rows["replay"], main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
     cmp_rows.append(main_row)
+    mark(4)
     # 5. card vs CPU
     phase_card_vs_cpu(args.seed)
     torch.cuda.empty_cache()  # the children below need the card's memory
+    mark(5)
     # 6. serve at full width through the real entry point
     serve_row = phase_serve(args.seed, smi)
     rows["serve"] = serve_row["kernel_launches"]
+    mark(6)
     # 7. kill -9 drill
     rows["kill_drill"] = phase_kill_drill(args.seed, smi)["fault_free_kernel_launches"]
+    mark(7)
     # 8. serve with the model-side flags at full width
     rows["serve_model_side"] = phase_serve_model_side(args.seed, smi,
                                                       serve_row)["kernel_launches"]
+    mark(8)
     # 9. flags on vs off, and the reducers card vs CPU
     rows["flags_on"] = phase_flags_on_off(args.seed, smi)["launches_on"]
+    mark(9)
     # 10. the cascade eval on the card, then killed and resumed
     phase_cascade(smi)
+    mark(10)
     # 11. the NAB corpus through `nab`, the kernel after it, card == CPU
     nab_row, nab_krow = phase_nab_corpus(smi)
     rows["nab"] = nab_row["kernel_launches"]
     cmp_rows.append(nab_krow)
     torch.cuda.empty_cache()
+    mark(11)
     # 12. the HTMModel golden on the card
     rows["htm_model"] = phase_golden(smi)["kernel_launches"]
+    mark(12)
     # 13. the SDR classifier, card vs CPU
     rows["classifier"] = phase_classifier(args.seed, smi)["kernel_launches"]
     torch.cuda.empty_cache()
+    mark(13)
     # 14. serve --preset nab|composite|categorical
     for preset, row in phase_serve_presets(args.seed, smi).items():
         rows[f"serve_{preset}"] = row["kernel_launches"]
+    mark(14)
+    work = tempfile.mkdtemp(prefix="rtap-evals-")
+    try:
+        # 15. python -m rtap_tpu_torch eval: fixture, card == CPU,
+        # the artifacts' shape, BASELINE config 3
+        eval_row = phase_eval(smi, work)
+        rows.update(eval_row["launches_by_path"])
+        eval_report = eval_row["artifact_report_path"]
+        torch.cuda.empty_cache()
+        mark(15)
+        # 16. the workload modalities
+        rows["workloads"] = phase_workloads(smi, work)["kernel_launches"]
+        mark(16)
+        # 17. the multivariate node eval and a held-out cell
+        nh = phase_node_heldout(smi, work)
+        rows["node_eval"] = nh["node"]["kernel_launches"]
+        rows["heldout"] = nh["heldout"]["kernel_launches"]
+        mark(17)
+        # 18. python -m rtap_tpu_torch report
+        rows["report"] = phase_report(smi, work, eval_report)["kernel_launches"]
+        mark(18)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": rows["replay"],
@@ -1455,7 +1922,6 @@ def main() -> int:
         # each path's launches, counted from 0 around that path's run
         "launches_by_path": rows,
     }
-    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [kern]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,11 @@
              prints one JSON line of stats.
     nab      NAB-style detection quality over a corpus: detect, sweep the
              threshold, print the normalized score of each cost profile.
+    eval     fault-injection evaluation of the cluster preset: replay
+             kind-labelled synthetic streams, sweep threshold x debounce,
+             print (and --out) the JSON report.
+    report   matplotlib overlays (metric, likelihood, alerts) of a replay,
+             and a fault-eval report's per-kind recall chart.
 
 All run on cuda unless --device cpu. The flags mirror the JAX package's
 subcommands where they apply (``--device`` takes the place of
@@ -22,6 +27,8 @@ import signal
 import sys
 import threading
 import time
+
+from rtap_tpu_torch.eval.report import add_report_flags
 
 #: JAX-package serve flags not ported yet -> (takes a value, ROADMAP.md queue
 #: item that ports it; "--device" for the flag it replaces). Each is parsed
@@ -421,6 +428,37 @@ def _cmd_nab(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_eval(args: argparse.Namespace) -> int:
+    """The fault-injection eval (eval/fault_eval.py) at the flags' config."""
+    from rtap_tpu_torch.data.synthetic import ANOMALY_KINDS
+    from rtap_tpu_torch.eval.fault_eval import eval_config, run_fault_eval
+
+    if args.backend is not None:
+        print("eval: --backend is not ported to rtap_tpu_torch: it takes --device cuda|cpu",
+              file=sys.stderr)
+        return 2
+    cfg = eval_config(likelihood=args.likelihood, learning_period=args.learning_period,
+                      learn_every=args.learn_every, learn_burst=args.learn_burst)
+    kinds = ANOMALY_KINDS if args.all_kinds else ("spike", "level_shift", "dropout")
+    report = run_fault_eval(n_streams=args.streams, length=args.length, kinds=kinds,
+                            magnitude=args.magnitude, cfg=cfg, device=args.device,
+                            default_debounce=args.debounce)
+    print(report.to_json())
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(report.to_json())
+        print(f"report written to {args.out}", file=sys.stderr)
+    return 0
+
+
+def _cmd_report(args: argparse.Namespace) -> int:
+    from rtap_tpu_torch.eval.report import write_report
+
+    write_report(args.out_dir, args.streams, args.length, args.eval_report,
+                 device=args.device)
+    return 0
+
+
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
@@ -590,6 +628,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save the batched group's final state (every file's model and "
                         "likelihood) as a group checkpoint in this directory")
     p.set_defaults(fn=_cmd_nab)
+
+    p = sub.add_parser("eval", help="fault-injection evaluation -> JSON report")
+    p.add_argument("--streams", type=int, default=120)
+    p.add_argument("--length", type=int, default=1500)
+    p.add_argument("--magnitude", type=float, default=6.0)
+    p.add_argument("--all-kinds", action="store_true",
+                   help="include the hard gradual kinds (drift, stuck)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
+    p.add_argument("--backend", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--debounce", type=int, default=2)
+    p.add_argument("--likelihood", choices=("window", "streaming"), default="streaming",
+                   help="likelihood mode; streaming is the production config, "
+                        "window the NuPIC-faithful comparison study")
+    p.add_argument("--learning-period", type=int, default=None,
+                   help="override the likelihood probation length in ticks")
+    p.add_argument("--learn-every", type=int, default=1,
+                   help="learning cadence: learn every k-th tick once the "
+                        "likelihood learning_period has passed (k=1 = full rate)")
+    p.add_argument("--learn-burst", type=int, default=1,
+                   help="burst shape of the thinned cadence: B consecutive "
+                        "learn ticks per k*B cycle")
+    p.add_argument("--out", default=None, help="write the JSON report here")
+    p.set_defaults(fn=_cmd_eval)
+
+    p = sub.add_parser("report", help="matplotlib overlays (metric/likelihood/alerts)")
+    add_report_flags(p)
+    p.set_defaults(fn=_cmd_report)
     return ap
 
 

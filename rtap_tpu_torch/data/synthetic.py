@@ -266,6 +266,124 @@ def cluster_streams(n_streams: int, length: int, seed: int = 0, **kw) -> list[La
 
 
 @dataclass
+class LogStream:
+    """One synthetic log-line stream (the log-template modality):
+    raw lines + ground-truth anomaly windows. Feed ``lines`` through
+    :class:`rtap_tpu_torch.ingest.TemplateMiner` to get the template-id value
+    stream a categorical composite field scores."""
+
+    stream_id: str
+    timestamps: np.ndarray  # int64 unix seconds, [T]
+    lines: list[str]
+    windows: list[tuple[int, int]] = field(default_factory=list)
+    events: list[FaultEvent] = field(default_factory=list)
+
+
+#: steady-state log-template pool: realistic shapes with numeric variable
+#: positions (the drain-style miner masks digit-bearing tokens), one
+#: format per template so mined ids are stable
+_LOG_TEMPLATES = (
+    "connected to host 10.0.{a}.{b} port {p}",
+    "request /api/v1/items served in {ms} ms status 200",
+    "heartbeat ok seq {n}",
+    "cache lookup key item-{n} hit ratio 0.{r}",
+    "gc pause {ms} ms heap {n} mb",
+    "scheduled job sync-{n} finished rc 0",
+)
+
+#: the anomalous burst template — a structure steady state never emits
+_LOG_BURST_TEMPLATE = "ERROR disk failure on volume {n} remounting read-only"
+
+
+def generate_log_stream(
+    stream_id: str, cfg: SyntheticStreamConfig, seed: int = 0,
+) -> LogStream:
+    """Seeded log-burst stream: one line per tick drawn from the steady
+    template pool (numeric fields re-drawn per line, so the miner's
+    masking is load-bearing), with ``cfg.n_anomalies`` bursts of the
+    ERROR template injected post-probation — the log-burst workload.
+    Windows label the burst spans NAB-style."""
+    rng = _rng_for(seed, stream_id)
+    T = cfg.length
+    t_unix = (cfg.start_unix + np.arange(T) * cfg.cadence_s).astype(np.int64)
+    # steady mix biased toward the first templates (realistic skew)
+    weights = np.array([2.0 ** -i for i in range(len(_LOG_TEMPLATES))])
+    weights /= weights.sum()
+    choices = rng.choice(len(_LOG_TEMPLATES), size=T, p=weights)
+
+    def render(i: int) -> str:
+        return _LOG_TEMPLATES[choices[i]].format(
+            a=rng.integers(256), b=rng.integers(256), p=rng.integers(1024, 65536),
+            ms=rng.integers(1, 500), n=rng.integers(1, 100000),
+            r=rng.integers(10, 99))
+
+    lines = [render(i) for i in range(T)]
+    windows: list[tuple[int, int]] = []
+    events: list[FaultEvent] = []
+    if cfg.n_anomalies > 0:
+        lo = int(T * cfg.inject_after_frac)
+        n_candidates = T - 50 - lo
+        if n_candidates < cfg.n_anomalies:
+            raise ValueError(
+                f"stream length {T} too short for {cfg.n_anomalies} log "
+                f"burst(s) past inject_after_frac={cfg.inject_after_frac}")
+        centers = np.sort(rng.choice(np.arange(lo, T - 50),
+                                     size=cfg.n_anomalies, replace=False))
+        for c in centers:
+            dur = int(rng.integers(5, 25))
+            s, e = int(c), min(int(c) + dur, T - 1)
+            for i in range(s, e):
+                lines[i] = _LOG_BURST_TEMPLATE.format(n=rng.integers(16))
+            margin = max(2, dur // 2)
+            win = (int(t_unix[max(0, s - margin)]),
+                   int(t_unix[min(T - 1, e + margin)]))
+            windows.append(win)
+            events.append(FaultEvent("log_burst", int(t_unix[s]),
+                                     int(t_unix[e]), win))
+    return LogStream(stream_id, t_unix, lines, windows, events)
+
+
+def generate_categorical_stream(
+    stream_id: str, cfg: SyntheticStreamConfig, seed: int = 0,
+    n_classes: int = 6,
+) -> LabeledStream:
+    """Seeded event-class stream (the categorical modality): each tick
+    carries a category id drawn from a skewed steady distribution over
+    ``n_classes`` classes; anomalies are bursts of a NOVEL class (id ==
+    n_classes, never seen in steady state) — the shape a categorical
+    encoder must catch and a scalar RDSE treats as merely 'one bucket
+    further'. Values are float ids ready for a categorical field."""
+    rng = _rng_for(seed, stream_id)
+    T = cfg.length
+    t_unix = (cfg.start_unix + np.arange(T) * cfg.cadence_s).astype(np.int64)
+    weights = np.array([2.0 ** -i for i in range(n_classes)])
+    weights /= weights.sum()
+    values = rng.choice(n_classes, size=T, p=weights).astype(np.float32)
+    windows: list[tuple[int, int]] = []
+    events: list[FaultEvent] = []
+    if cfg.n_anomalies > 0:
+        lo = int(T * cfg.inject_after_frac)
+        n_candidates = T - 50 - lo
+        if n_candidates < cfg.n_anomalies:
+            raise ValueError(
+                f"stream length {T} too short for {cfg.n_anomalies} class "
+                f"burst(s) past inject_after_frac={cfg.inject_after_frac}")
+        centers = np.sort(rng.choice(np.arange(lo, T - 50),
+                                     size=cfg.n_anomalies, replace=False))
+        for c in centers:
+            dur = int(rng.integers(5, 25))
+            s, e = int(c), min(int(c) + dur, T - 1)
+            values[s:e] = float(n_classes)  # the novel class
+            margin = max(2, dur // 2)
+            win = (int(t_unix[max(0, s - margin)]),
+                   int(t_unix[min(T - 1, e + margin)]))
+            windows.append(win)
+            events.append(FaultEvent("class_burst", int(t_unix[s]),
+                                     int(t_unix[e]), win))
+    return LabeledStream(stream_id, t_unix, values, windows, events)
+
+
+@dataclass
 class TopologyWorkload:
     """A seeded multi-service cluster with ONE cascading fault: the ground
     truth of the cascade eval (``python -m rtap_tpu_torch.predict_eval``)."""
@@ -402,3 +520,107 @@ def generate_topology_workload(
         precursor_node=burst_nodes[0] if precursor_ticks else None,
         precursor_start=(burst_onsets[burst_nodes[0]] - precursor_ticks)
         if precursor_ticks else None)
+
+
+@dataclass
+class NodeStream:
+    """One node's fused multivariate stream (SURVEY.md §6 benchmark config 4:
+    'multivariate per-node cpu/mem/net fused RDSE'): values [T, F] feed ONE
+    HTM model with n_fields=F, versus `generate_cluster`'s one model per
+    node-metric."""
+
+    node_id: str
+    metrics: tuple[str, ...]
+    timestamps: np.ndarray  # int64 unix seconds, [T]
+    values: np.ndarray  # float32, [T, F]
+    windows: list[tuple[int, int]] = field(default_factory=list)
+    events: list[FaultEvent] = field(default_factory=list)
+    # which metric columns each event touched, index-aligned with `events`
+    event_metrics: list[tuple[str, ...]] = field(default_factory=list)
+
+
+def generate_node(
+    node_id: str,
+    cfg: SyntheticStreamConfig,
+    metrics: Sequence[str] = ("cpu", "mem", "net"),
+    seed: int = 0,
+    coupled_frac: float = 0.5,
+    fault_metrics: Sequence[str] | None = None,
+) -> NodeStream:
+    """Generate one node's multivariate stream with NODE-LEVEL faults.
+
+    Each metric gets its own clean base signal (phase/noise keyed by
+    `<node_id>.<metric>`, deterministic like everything else here). Faults
+    are placed once per NODE at shared times — each event hits either ALL
+    metrics simultaneously (probability `coupled_frac`: the node-saturation
+    shape, e.g. cpu+mem+net degrade together) or exactly one metric (a
+    single-metric fault the fused model must still catch). Windows are the
+    union over touched metrics; `event_metrics` records the ground truth of
+    which columns moved. `fault_metrics` restricts which metrics uncoupled
+    faults may land on (evaluations use it to avoid metrics whose natural
+    range makes a given fault kind in-distribution, e.g. a +6-sigma spike on
+    `net`, whose diurnal peak already reaches that level).
+    """
+    if fault_metrics is not None:
+        bad = set(fault_metrics) - set(metrics)
+        if bad or not fault_metrics:
+            raise ValueError(
+                f"fault_metrics must be a non-empty subset of metrics {tuple(metrics)}; "
+                f"got {tuple(fault_metrics)}"
+            )
+    n_anom = cfg.n_anomalies
+    # A too-short stream makes the fault-center draw below degenerate (empty
+    # or undersized candidate range -> opaque numpy ValueError); fail with
+    # the actual constraint instead (the CLI guards its own replay path, but
+    # node_eval and other callers come through here).
+    lo_check = int(cfg.length * cfg.inject_after_frac)
+    n_candidates = cfg.length - 50 - lo_check
+    if n_candidates < n_anom:
+        raise ValueError(
+            f"stream length {cfg.length} too short: the injection range "
+            f"[{lo_check}, {cfg.length - 50}) has {max(n_candidates, 0)} candidate "
+            f"centers for n_anomalies={n_anom}; lengthen the stream or lower "
+            "inject_after_frac/n_anomalies"
+        )
+    cfg = replace(cfg, n_anomalies=0)  # per-metric injections off; node-level below
+    parts = [
+        generate_stream(f"{node_id}.{m}", replace(cfg, metric=m), seed=seed)
+        for m in metrics
+    ]
+    values = np.stack([p.values for p in parts], axis=1)  # [T, F]
+    t_unix = parts[0].timestamps
+    rng = _rng_for(seed, node_id)
+
+    windows: list[tuple[int, int]] = []
+    events: list[FaultEvent] = []
+    event_metrics: list[tuple[str, ...]] = []
+    lo = int(cfg.length * cfg.inject_after_frac)
+    centers = np.sort(rng.choice(np.arange(lo, cfg.length - 50), size=n_anom, replace=False))
+    for c in centers:
+        kind = cfg.kinds[rng.integers(len(cfg.kinds))]
+        dur = int(rng.integers(5, 40))
+        pool = tuple(fault_metrics) if fault_metrics is not None else tuple(metrics)
+        if rng.random() < coupled_frac:
+            touched = tuple(metrics)
+        else:
+            touched = (pool[rng.integers(len(pool))],)
+        # the window is a function of (c, dur, margin) only, so every touched
+        # metric of one event shares it — keep the first (win, ev) pair
+        win = ev = None
+        for f, m in enumerate(metrics):
+            if m not in touched:
+                continue
+            sigma = METRIC_PROFILES.get(m, METRIC_PROFILES["cpu"])[2] * cfg.noise_scale
+            col = np.ascontiguousarray(values[:, f], dtype=np.float64)
+            w, e = _inject(col, t_unix, rng, replace(cfg, metric=m), sigma, kind, int(c), dur)
+            win, ev = win or w, ev or e
+            lo_c, hi_c = METRIC_PROFILES.get(m, METRIC_PROFILES["cpu"])[3]
+            if lo_c is not None:
+                col = np.maximum(col, lo_c)
+            if hi_c is not None:
+                col = np.minimum(col, hi_c)
+            values[:, f] = col.astype(np.float32)
+        windows.append(win)
+        events.append(ev)
+        event_metrics.append(touched)
+    return NodeStream(node_id, tuple(metrics), t_unix, values, windows, events, event_metrics)

@@ -16,7 +16,7 @@ through ``live_loop``: the groups carry the predictive-horizon reducer
 them into one ``predicted_incident`` at the first node with the predicted
 blast radius.
 
-The run exits 5 unless eval/lead_time.score_lead_time says ``win`` (the
+The run exits 5 unless eval/fault_eval.score_lead_time says ``win`` (the
 first page lands before the second node's onset), ``blast_covered`` (the
 predicted radius covers every faulted node) and 0 false precursors on the
 healthy service. It prints the result as one JSON line.
@@ -87,7 +87,7 @@ def main(argv=None) -> int:
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.correlate import IncidentCorrelator, TopologyMap
     from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, generate_topology_workload
-    from rtap_tpu_torch.eval.lead_time import score_lead_time
+    from rtap_tpu_torch.eval.fault_eval import score_lead_time
     from rtap_tpu_torch.predict import BlastFuser, PredictTracker
     from rtap_tpu_torch.service.loop import live_loop
     from rtap_tpu_torch.service.registry import StreamGroupRegistry

@@ -96,9 +96,10 @@ def live_loop(
 ) -> dict:
     """Paced live scoring: each tick, poll `source(tick) -> (values, ts)`,
     score the group(s), emit alerts, sleep off the rest of the cadence
-    budget. Returns stats including the missed-deadline count and
-    ``missing_values``, the (stream, tick) samples the source gave as
-    missing (scored all the same).
+    budget. Returns stats including the missed-deadline count,
+    ``missed_tick_phase_ms`` (at a cadence above 0: each missed tick with
+    its ms per phase) and ``missing_values``, the (stream, tick) samples the
+    source gave as missing (scored all the same).
 
     `group` is a :class:`StreamGroup` or a finalized
     :class:`StreamGroupRegistry`; the source's values follow the
@@ -348,6 +349,8 @@ def live_loop(
 
     watchdog = TickWatchdog(cadence_s, registry=obs, event_sink=writer.emit_event)
     missed = 0
+    # (tick, ms per phase) of each tick past a real cadence's deadline
+    missed_phase_ms: list = []
     checkpoints_saved = 0
     ticks_run = 0
     last_saved = 0
@@ -688,6 +691,9 @@ def live_loop(
         missed_this = watchdog.observe_tick(k, elapsed)
         if missed_this:
             missed += 1
+            if cadence_s > 0:
+                missed_phase_ms.append((k, {p: round((phase_s[p] - phase_tick0[p]) * 1e3, 3)
+                                            for p in _PHASES}))
         budget = max(0.0, cadence_s - (time.perf_counter() - t_start))
         if not missed_this and k + 1 < n_ticks:
             if stop_event is not None:
@@ -734,6 +740,8 @@ def live_loop(
         for p in (50, 90, 99):
             stats[f"latency_p{p}_ms"] = round(float(np.percentile(used, p)) * 1e3, 3)
         stats["latency_max_ms"] = round(float(used.max()) * 1e3, 3)
+    if cadence_s > 0:
+        stats["missed_tick_phase_ms"] = missed_phase_ms
     stats["scored_by_group"] = [int(x) for x in group_scored]
     if journal is not None:
         stats["journal"] = {**journal.stats(), **journal_replay,

@@ -331,3 +331,40 @@ def test_htm_model_golden_on_card(cuda):
     np.testing.assert_array_equal([r.raw_score for r in res], golden["raw"])
     np.testing.assert_allclose([r.log_likelihood for r in res], golden["loglik"], rtol=0,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("entry", ["fault_eval", "log_template", "node_eval"])
+def test_eval_entry_points_on_card_match_cpu(cuda, entry):
+    """The evals on the card and on the CPU at a small shape (the 32-column
+    cluster family with a 40-tick probation; node_preset(3) with a 60-tick
+    one): the same reports but for wall-clock entries; the node eval's raw
+    and loglik equal."""
+    import dataclasses
+
+    from rtap_tpu_torch.config import node_preset
+    from rtap_tpu_torch.eval import fault_eval, node_eval, workload_eval
+
+    cat, tiny, _ = workload_eval.tiny_eval_configs()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if entry == "fault_eval":
+            out[dev] = dataclasses.asdict(fault_eval.run_fault_eval(
+                n_streams=6, length=400, cfg=tiny, device=dev, chunk_ticks=128))
+        elif entry == "log_template":
+            out[dev] = workload_eval.run_log_template_eval(n_streams=4, length=360, cfg=cat,
+                                                           device=dev)
+        else:
+            cfg = node_preset(3)
+            cfg = dataclasses.replace(cfg, likelihood=dataclasses.replace(
+                cfg.likelihood, learning_period=60, estimation_samples=40))
+            out[dev] = node_eval.run_node_eval(3, 400, device=dev, cfg=cfg)
+    a, b = out["cuda"], out["cpu"]
+    for k in ("raw", "loglik"):
+        if k in a:
+            assert np.array_equal(a.pop(k), b.pop(k)), k
+    for r in (a, b):
+        r.pop("device", None)
+        r.pop("wall_s", None)
+        for k in ("elapsed_s", "metrics_per_sec"):
+            r.get("throughput", {}).pop(k, None)
+    assert a == b

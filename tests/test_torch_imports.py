@@ -38,11 +38,15 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/obs/health.py", "rtap_tpu_torch/ops/health.py",
             "rtap_tpu_torch/ops/predict.py", "rtap_tpu_torch/predict/horizon.py",
             "rtap_tpu_torch/predict/blast.py", "rtap_tpu_torch/correlate/topology.py",
-            "rtap_tpu_torch/correlate/incidents.py", "rtap_tpu_torch/eval/lead_time.py",
+            "rtap_tpu_torch/correlate/incidents.py", "rtap_tpu_torch/eval/fault_eval.py",
             "rtap_tpu_torch/predict_eval.py", "rtap_tpu_torch/ops/classifier.py",
             "rtap_tpu_torch/models/likelihood.py", "rtap_tpu_torch/models/htm_model.py",
             "rtap_tpu_torch/data/nab_corpus.py", "rtap_tpu_torch/nab/scorer.py",
-            "rtap_tpu_torch/nab/runner.py"} <= names
+            "rtap_tpu_torch/nab/runner.py", "rtap_tpu_torch/eval/workload_eval.py",
+            "rtap_tpu_torch/eval/node_eval.py", "rtap_tpu_torch/eval/heldout_eval.py",
+            "rtap_tpu_torch/eval/report.py", "rtap_tpu_torch/ingest/templates.py",
+            "rtap_tpu_torch/ingest/__init__.py", "rtap_tpu_torch/data/synthetic.py"} <= names
+    assert "rtap_tpu_torch/eval/lead_time.py" not in names  # folded into eval/fault_eval.py
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -687,3 +687,26 @@ def test_serve_preset_with_columns_is_the_jax_usage_error(capsys, preset):
     want = capsys.readouterr().err
     assert main([*argv, "--device", "cpu"]) == 2
     assert capsys.readouterr().err == want and "--columns applies to the cluster" in want
+
+
+def test_live_loop_records_each_missed_ticks_phase_split():
+    """At a real cadence every tick past its deadline is reported with its ms
+    per phase, so a slow tick says what it waited on (here: the source)."""
+    reg = StreamGroupRegistry(CFG, group_size=4, device="cpu")
+    for i in range(4):
+        reg.add_stream(f"n{i}.cpu")
+    reg.finalize()
+
+    def source(k):
+        if k == 2:
+            time.sleep(0.3)
+        return np.full(4, 30.0 + k, np.float32), 1_700_000_000 + k
+
+    stats = live_loop(source, reg, n_ticks=4, cadence_s=0.25)
+    assert stats["missed_deadlines"] == len(stats["missed_tick_phase_ms"]) >= 1
+    ticks = [t for t, _ in stats["missed_tick_phase_ms"]]
+    assert 2 in ticks
+    split = dict(stats["missed_tick_phase_ms"])[2]
+    assert set(split) == {"source", "membership", "dispatch", "collect", "emit", "checkpoint"}
+    assert split["source"] >= 300.0
+    assert "missed_tick_phase_ms" not in live_loop(source, reg, n_ticks=1, cadence_s=0.0)
