@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay, serve, NAB, model and eval paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve, resilience, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T]
 
@@ -42,8 +42,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    child's alert stream and each is gated, its phase split reported. Tick
    latency, per-phase ms, seconds per group save, parse rate and peak
    device memory are reported, not gated.
-7. kill -9 drill: this script's hidden ``--child`` mode runs the port's
-   ``live_loop`` (2,048 streams in 2 groups, 96 ticks at cadence 0,
+7. kill -9 drill: this script's hidden ``--child`` mode runs the chaos
+   soak's journaled child (2,048 streams in 2 groups, 96 ticks at cadence 0,
    checkpoints every 16 ticks, journal on, a seeded source keyed by the
    global tick, every stream alerting every tick) once without faults, then
    again with SIGKILLs at two journal-observed ticks off the save grid,
@@ -51,24 +51,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    bit-equal to the fault-free run, every alert id exactly once with equal
    record bytes, both kills rc -9, and the fault-free child's launches
    equal to groups x learning ticks.
-8. serve with the model-side flags: phase 6's serve (32,768 streams in 8
-   groups of 4,096, depth 2, 1 s cadence, 40 learning ticks, the journal,
-   the tick-gated feeder) with ``--health --predict --topology infer``, ids
-   renamed ``svc<s>-<n>.<metric>`` so the inferred topology groups them
-   (128 services), timestamps anchored ahead of the wall clock, and no
-   checkpoint dir. Gates: exit 0, every tick scored, one kernel launch per
-   group per tick, 8 x 40 health and predict folds, a finite fleet miss
-   EWMA, the trackers armed, ``<alerts>.epoch`` at 1. Latency, per-phase ms
-   and peak memory are reported beside phase 6's.
+8. serve with the model-side and observability flags: phase 6's serve
+   (32,768 streams in 8 groups of 4,096, depth 2, 1 s cadence, 40 learning
+   ticks, the journal, the tick-gated feeder) with ``--health --predict
+   --topology infer --latency --slo tick=1s@p99 --trace-out F
+   --postmortem-dir D --flight-ticks 64 --obs-port 0
+   --alert-attribution``, ids renamed ``svc<s>-<n>.<metric>`` so the
+   inferred topology groups them (128 services), timestamps anchored ahead
+   of the wall clock, and no checkpoint dir. Once the child journals tick
+   20 this script GETs /metrics, /healthz, /latency, /health, /predict,
+   /incidents and /trace?last=5. Gates: exit 0, every tick scored, one
+   kernel launch per learned group tick, 8 x 40 health and predict folds,
+   a finite fleet miss EWMA, every tracker armed, ``<alerts>.epoch`` at 1;
+   every route 200, the Prometheus text parses and carries the registry's
+   ``rtap_obs_*`` families (each one of the child's), /healthz ok; the
+   trace file is Chrome trace JSON with the loop's phase spans for every
+   tick; every bundle in D valid; every alert line with ``top_fields``;
+   the SLO verdict in the stats. Latency, per-phase ms and peak memory are
+   reported beside phase 6's and beside phase 8's without the obs flags.
 9. flags on vs off: the drill's shape (2 groups of 1,024, 96 ticks at
    cadence 0, every stream alerting every tick) through ``live_loop`` on
-   the card with health + predict 8 and the trackers, and without: every
-   model leaf (the predictor's own aside) bit-equal, the raw scores bit
-   for bit and the alert lines byte for byte; launches equal; every scored
-   stream's miss EWMA finite. Then one learning tick of a 64-stream slice of
-   that state on the card and on the CPU with both reducers: predict leaves,
-   raw and state bit for bit, health integers exact and floats at
-   rtol=1e-5, atol=1e-6.
+   the card with health + predict 8, the trackers and the observability
+   hooks (latency + a tick SLO, trace, flight recorder, attribution), and
+   without any: every model leaf (the predictor's own aside) bit-equal,
+   the raw scores bit for bit and the alert lines byte for byte once
+   ``top_fields`` is removed (every on line has it); launches equal; every
+   scored stream's miss EWMA finite. Then one learning tick of a 64-stream
+   slice of that state on the card and on the CPU with both reducers:
+   predict leaves, raw and state bit for bit, health integers exact and
+   floats at rtol=1e-5, atol=1e-6.
 10. the cascade eval: ``python -m rtap_tpu_torch.predict_eval`` at the JAX
    script's defaults on the card (win, blast covered, 0 false precursors)
    and on this machine's CPU (the same page tick and first-precursor
@@ -125,6 +136,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    report: both PNGs written. Where matplotlib is not installed, a line
    says so and the report's replay runs on the card and the CPU instead:
    raw and loglik equal. 900 launches either way.
+
+19. resilience on the card, ``python -m rtap_tpu_torch.chaos_soak`` (its
+   main, in this process): (a) the seeded soak, cluster preset at full
+   width, 4,096 streams in 4 groups of 1,024, 120 ticks at cadence 0.05 s,
+   checkpoints every 10, restore after 6, seed 1, rate 0.08, plus an
+   injected collect fault on group 1 at tick 40 (seed 1's schedule draws
+   no quarantine): verified (no silent gap, alert ids unique, bundles
+   valid), its schedule digest the one this process draws on the host,
+   every quarantined group restored, the untouched groups' final leaves
+   bit-equal to a twin run without the state-changing faults, launches
+   equal to the learned group ticks; (b) ``--degrade``, 2 groups of 1,024,
+   100 ticks at 0.1 s, group 0's dispatch hanging twice the cadence for 25
+   ticks: the ladder engages and recovers to level 0, launches equal to
+   the learned group ticks and fewer than every group tick; (c)
+   ``--supervise --kills 2`` at the drill's shape (2 groups of 1,024, 96
+   ticks, checkpoints every 16): two proc_exit deaths and restarts, the
+   budget done, journal replays, no alert id twice, the last life's
+   launches its learned group ticks; (d) ``--topology-burst`` (12 streams,
+   120 ticks): exactly one incident over the flooded nodes. The seconds of
+   each and each restore's seconds are reported.
+20. the obs cost: every measure of ``obs/selfbench.GATE_MEASURES`` in this
+   process at most 1% of the 1 s tick budget, microseconds reported.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -198,6 +231,25 @@ WORKLOAD_SHAPE = (12, 900, 11)  # phase 16: reports/workloads_r09.json's
 NODE_SHAPE, NODE_CPU = (12, 1400), (2, 400)  # phase 17
 HELDOUT_CELL = ("preset_256col", 6.0, 11, 40, 1000)  # variant, magnitude, seed, streams, ticks
 REPORT_TICKS = 900  # phase 18: the report's replay, one group
+# phase 8: the obs scrape happens once the child journals this tick; phase
+# 8's tick latency without the obs flags (p50, p99 ms, PERF.md section 2;
+# NVIDIA H100 80GB HBM3, 700.00 W) is reported beside
+OBS_SCRAPE_TICK = 20
+PHASE8_WITHOUT_OBS_MS = (349.435, 826.919)
+OBS_ROUTES = ("/metrics", "/healthz", "/latency", "/health", "/predict", "/incidents",
+              "/trace?last=5")
+# phase 8 must expose at least these registry families while it runs
+OBS_FAMILIES = ("rtap_obs_ticks_total", "rtap_obs_scored_total", "rtap_obs_tick_seconds",
+                "rtap_obs_phase_seconds", "rtap_obs_streams_active", "rtap_obs_groups_quarantined",
+                "rtap_obs_run_epoch", "rtap_obs_build_info", "rtap_obs_last_tick_unixtime",
+                "rtap_obs_latency_samples_total", "rtap_obs_slo_burn_rate")
+# phase 19: the seeded soak (cluster preset at full width), its injected
+# restore drill, the degradation drill and the supervised drill
+CHAOS_SOAK = dict(seed=1, streams=4096, group_size=1024, ticks=120, cadence=0.05,
+                  checkpoint_every=10, restore_after=6, rate=0.08)
+CHAOS_INJECT = ("collect_exception@40:1",)  # seed 1's schedule draws no quarantine
+DEGRADE_DRILL = dict(streams=DRILL_STREAMS, group_size=DRILL_GROUP, ticks=100, cadence=0.1)
+SUPERVISE_KILLS = 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -477,12 +529,14 @@ def _tree_bytes(path: str) -> int:
 
 
 def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list[str],
-                 group: int = SERVE_GROUP, n_ticks: int = SERVE_TICKS) -> tuple:
+                 group: int = SERVE_GROUP, n_ticks: int = SERVE_TICKS,
+                 scrape=None) -> tuple:
     """`python -m rtap_tpu_torch serve` on cuda over `ids` (groups of
     `group`, depth 2, 1 s cadence, `n_ticks` ticks, alerts and the journal
     in `work`, plus `extra` flags), fed over TCP by this process: tick
     t + 1's records when the child journals tick t -> (stats, records sent,
-    stderr)."""
+    stderr). `scrape` = (tick, fn, out dict): once the child journals that
+    tick, ``out.update(fn(obs port))`` (the child runs with --obs-port 0)."""
     from rtap_tpu_torch.resilience.journal import last_journal_tick
     from rtap_tpu_torch.service.sources import send_jsonl
 
@@ -498,12 +552,15 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     err_lines: list[str] = []
     port: list[int] = []
+    obs_port: list[int] = []
 
     def read_stderr():
         for line in proc.stderr:
             err_lines.append(line)
             if "listening for JSONL records on" in line:
                 port.append(int(line.rsplit(":", 1)[1]))
+            elif "obs telemetry on http://" in line:
+                obs_port.append(int(line.rsplit(":", 1)[1].split("/")[0]))
 
     reader = threading.Thread(target=read_stderr, daemon=True)
     reader.start()
@@ -525,6 +582,8 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
             if proc.poll() is not None or last_journal_tick(journal_dir) < t:
                 break
             sent += send_jsonl(("127.0.0.1", port[0]), records)
+            if scrape is not None and t == scrape[0]:
+                scrape[2].update(scrape[1](obs_port[0]))
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise AssertionError(f"serve exited {proc.returncode}:\n"
@@ -653,9 +712,43 @@ def service_ids(ids: list[str]) -> list[str]:
     return out
 
 
+def parse_prometheus(text: str) -> tuple[set, int]:
+    """Prometheus text -> (its TYPE families, sample lines); raises on a
+    sample line whose value is not a number."""
+    families, samples = set(), 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            float(line.rsplit(" ", 1)[1])
+            samples += 1
+    return families, samples
+
+
+def _scrape_obs(port: int) -> dict:
+    """GET every obs route of a running serve child -> {route: (status,
+    body)}, with the seconds the scrape took."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    out = {}
+    for route in OBS_ROUTES:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as r:
+                out[route] = (r.status, r.read().decode())
+        except urllib.error.HTTPError as e:
+            out[route] = (e.code, e.read().decode())
+    return {"routes": out, "scrape_s": time.perf_counter() - t0}
+
+
 def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
-    """Phase 6's serve with --health, --predict and --topology infer, no
-    checkpoint dir; its latency and per-phase ms beside phase 6's."""
+    """Phase 6's serve with --health, --predict and --topology infer and
+    the observability flags (latency + a tick SLO, trace, flight recorder,
+    the obs HTTP server scraped mid-run, alert attribution), no checkpoint
+    dir; its latency and per-phase ms beside phase 6's."""
+    from rtap_tpu_torch.obs import validate_bundle
+
     work = tempfile.mkdtemp(prefix="rtap-serve-ms-")
     # anchored at wall-clock time plus a margin: a fed ts in the past would
     # be clamped up to the wall clock and freeze the correlation clock
@@ -664,30 +757,55 @@ def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
     for records in ticks:
         for r, sid in zip(records, ids):
             r["id"] = sid
+    trace_path, pm_dir = os.path.join(work, "trace.json"), os.path.join(work, "pm")
+    scraped: dict = {}
     try:
-        stats, sent, err = _serve_child(ids, ticks, work,
-                                        ["--health", "--predict", "--topology", "infer"])
+        stats, sent, err = _serve_child(
+            ids, ticks, work,
+            ["--health", "--predict", "--topology", "infer", "--latency",
+             "--slo", "tick=1s@p99", "--trace-out", trace_path, "--postmortem-dir", pm_dir,
+             "--flight-ticks", "64", "--obs-port", "0", "--alert-attribution"],
+            scrape=(OBS_SCRAPE_TICK, _scrape_obs, scraped))
         epoch_file = os.path.join(work, "alerts.jsonl.epoch")
         epoch = json.loads(open(epoch_file).read())["epoch"] if os.path.exists(epoch_file) else None
         events: dict = {}
         missed = []  # (tick, seconds) of each missed deadline
+        alert_lines = top_fields = 0
         for line in open(os.path.join(work, "alerts.jsonl")):
             if line.startswith('{"event"'):
                 ev = json.loads(line)
                 events[ev["event"]] = events.get(ev["event"], 0) + 1
                 if ev["event"] == "missed_tick":
                     missed.append((ev["tick"], ev["elapsed_s"]))
+            else:
+                alert_lines += 1
+                top_fields += "top_fields" in json.loads(line)
+        trace = json.load(open(trace_path))
+        bundles = [os.path.join(pm_dir, d) for d in sorted(os.listdir(pm_dir))
+                   if not d.startswith(".tmp")] if os.path.isdir(pm_dir) else []
+        verdicts = [validate_bundle(b) for b in bundles]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     groups = SERVE_STREAMS // SERVE_GROUP
     health, predict = stats.get("health", {}), stats.get("predict", {})
     ewma_max = predict.get("miss_ewma_max")
+    routes = scraped.get("routes", {})
+    families, samples = parse_prometheus(routes["/metrics"][1]) \
+        if routes.get("/metrics", (0,))[0] == 200 else (set(), 0)
+    final_names = {m["name"] for m in stats["telemetry"]["metrics"]}
+    spans: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and e.get("tid") == 0:
+            spans.setdefault(e["name"], set()).add(e["args"]["tick"])
+    every = set(range(SERVE_TICKS))
     checks = {
         "ticks": stats["ticks"] == SERVE_TICKS,
         "scored": stats["scored"] == SERVE_TICKS * SERVE_STREAMS,
         "missing_values": stats["missing_values"] == SERVE_STREAMS,
         "records_parsed": stats["records_parsed"] == sent == (SERVE_TICKS - 1) * SERVE_STREAMS,
-        "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * SERVE_TICKS,
+        # one launch per learned tick of every (unquarantined) group
+        "kernel_launches": stats["kernel_launches"]["tm_learn"] == stats["learned_group_ticks"]
+                           == groups * SERVE_TICKS,
         "health_folds": health.get("groups") == groups
                         and health.get("ticks_folded") == groups * SERVE_TICKS,
         # the predictor folds every group tick of every group
@@ -699,15 +817,40 @@ def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
         "run_epoch": epoch == 1,
         "armed": all(a in err for a in ("model-health reducers armed",
                                         "predictive horizon armed (k=8 ticks",
-                                        "incident correlation armed (inferred")),
+                                        "incident correlation armed (inferred",
+                                        "detection-latency tracking armed",
+                                        "SLOs armed: tick=1s@p99",
+                                        "flight recorder armed")),
+        # the routes answered mid-run; the Prometheus text parses and carries
+        # the registry's families, each one of the child's own
+        "routes": sorted(routes) == sorted(OBS_ROUTES)
+                  and all(code == 200 for code, _ in routes.values()),
+        "prometheus": samples > 0 and set(OBS_FAMILIES) <= families <= final_names,
+        "healthz": routes.get("/healthz", (0, "{}"))[0] == 200
+                   and json.loads(routes["/healthz"][1])["ok"] is True,
+        # the loop's phase spans for every tick (collect and emit from the
+        # tick after, depth 2: tick 0 only dispatches)
+        "trace": every <= spans.get("tick", set()) and every <= spans.get("source", set())
+                 and every <= spans.get("dispatch", set())
+                 and every - {0} <= spans.get("collect", set())
+                 and every - {0} <= spans.get("emit", set()),
+        "bundles_valid": all(v["ok"] for v in verdicts),
+        "top_fields": top_fields == alert_lines,
+        "slo": stats.get("slo", {}).get("slos", [{}])[0].get("samples") == SERVE_TICKS,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"serve --health --predict --topology checks failed {bad}: "
-                             f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
+        raise AssertionError(f"serve with the model side and obs flags failed {bad}: "
+                             f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }; "
+                             f"routes {[(r, c) for r, (c, _) in routes.items()]}, "
+                             f"families missing {sorted(set(OBS_FAMILIES) - families)}, "
+                             f"stderr {err[-1500:]}")
     row = dict(streams=SERVE_STREAMS, group_size=SERVE_GROUP, groups=groups,
-               ticks=stats["ticks"], flags=["--health", "--predict", "--topology infer"],
-               scored=stats["scored"], alerts=stats["alerts"],
+               ticks=stats["ticks"],
+               flags=["--health", "--predict", "--topology infer", "--latency",
+                      "--slo tick=1s@p99", "--trace-out", "--postmortem-dir",
+                      "--flight-ticks 64", "--obs-port 0", "--alert-attribution"],
+               scored=stats["scored"], alerts=stats["alerts"], alert_lines=alert_lines,
                latency_p50_ms=stats["latency_p50_ms"], latency_p90_ms=stats["latency_p90_ms"],
                latency_p99_ms=stats["latency_p99_ms"], latency_max_ms=stats["latency_max_ms"],
                missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
@@ -715,7 +858,14 @@ def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
                phase6_latency_p50_ms=serve_row["latency_p50_ms"],
                phase6_latency_p99_ms=serve_row["latency_p99_ms"],
                phase6_phase_ms_per_tick=serve_row["phase_ms_per_tick"],
+               without_obs_latency_p50_ms=PHASE8_WITHOUT_OBS_MS[0],
+               without_obs_latency_p99_ms=PHASE8_WITHOUT_OBS_MS[1],
                health=health, predict=predict, incidents=stats["incidents"],
+               slo=stats["slo"], latency=stats["latency"], postmortem=stats["postmortem"],
+               bundles=len(bundles), trace_records=trace["otherData"]["total_records"],
+               trace_dropped=trace["otherData"]["dropped_records"],
+               obs_scrape_tick=OBS_SCRAPE_TICK, obs_scrape_s=scraped["scrape_s"],
+               prometheus_families=len(families), prometheus_samples=samples,
                events_on_stream=events, run_epoch=epoch,
                hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"],
                phase6_hbm_peak_bytes_in_use=serve_row["hbm_peak_bytes_in_use"],
@@ -725,48 +875,22 @@ def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
 
 
 def run_drill_child(args) -> int:
-    """One serve lifetime of the kill drill (``--child``): recover the
-    journal, resume the checkpoints, replay, then run the rest of the
-    DRILL_TICKS budget over a seeded source keyed by the global tick."""
+    """One serve lifetime of the kill drill (``--child``): the chaos soak's
+    journaled child (``python -m rtap_tpu_torch.chaos_soak --child``) at
+    the drill's shape — recover the journal, resume the checkpoints,
+    replay, then run the rest of the DRILL_TICKS budget over a seeded
+    source keyed by the global tick, one stream spiking each tick."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rtap_tpu_torch.config import cluster_preset
-    from rtap_tpu_torch.resilience.journal import TickJournal
-    from rtap_tpu_torch.service.checkpoint import peek_resume_ticks
-    from rtap_tpu_torch.service.loop import live_loop
-    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+    from rtap_tpu_torch import chaos_soak
 
-    w = args.workdir
-    journal = TickJournal(os.path.join(w, "journal"))
-    ckdir = os.path.join(w, "ck")
-    base = max(journal.next_tick, peek_resume_ticks(ckdir))
-    ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
     # threshold 0: every stream alerts every tick, so exactly-once is
     # checked on every (stream, tick)
-    reg = StreamGroupRegistry(cluster_preset(), group_size=DRILL_GROUP, device="cuda",
-                              threshold=0.0, debounce=1)
-    for sid in ids:
-        reg.add_stream(sid)
-    reg.finalize()
-
-    def source(k):
-        g = base + k  # the feed depends only on the GLOBAL tick
-        rng = np.random.Generator(np.random.Philox(key=(args.seed, g)))
-        v = (30 + 5 * rng.random(len(ids))).astype(np.float32)
-        v[g % len(ids)] += 30.0
-        return v, 1_700_000_000 + g
-
-    stats = live_loop(source, reg, n_ticks=max(0, DRILL_TICKS - base), cadence_s=0.0,
-                      alert_path=os.path.join(w, "alerts.jsonl"), checkpoint_dir=ckdir,
-                      checkpoint_every=DRILL_CHECKPOINT_EVERY, pipeline_depth=2,
-                      journal=journal)
-    journal.close()
-    print(json.dumps({"base": base, "ran": stats["ticks"], "alerts": stats["alerts"],
-                      "kernel_launches": stats["kernel_launches"]["tm_learn"],
-                      "group_save_s_mean": stats.get("group_save_s_mean"),
-                      "checkpoints_saved": stats["checkpoints_saved"],
-                      "phase_ms_per_tick": stats.get("phase_ms_per_tick"),
-                      "journal": stats["journal"]}), flush=True)
-    return 0
+    return chaos_soak.main(["--child", "--workdir", args.workdir, "--seed", str(args.seed),
+                            "--streams", str(DRILL_STREAMS), "--group-size", str(DRILL_GROUP),
+                            "--ticks", str(DRILL_TICKS), "--cadence", "0",
+                            "--checkpoint-every", str(DRILL_CHECKPOINT_EVERY),
+                            "--pipeline-depth", "2", "--threshold=0.0", "--spike-every", "1",
+                            "--device", "cuda"])
 
 
 def _drill_records(path: str) -> tuple[dict, list, int]:
@@ -917,21 +1041,40 @@ def _kill_drill(root: str, children: list, seed: int, card: str) -> dict:
 def phase_flags_on_off(seed: int, card: str) -> dict:
     """The drill's shape (2 groups of 1,024, 96 ticks at cadence 0, every
     stream alerting every tick) through live_loop on the card twice: with
-    --health and --predict 8 (trackers on) and without. Then one learning
-    tick of a 64-stream slice of the flags-on state with both reducers on
-    the card and on the CPU."""
+    --health and --predict 8 (trackers on) and the observability hooks
+    (latency + a tick SLO, trace, flight recorder, alert attribution), and
+    without any. Then one learning tick of a 64-stream slice of the
+    flags-on state with both reducers on the card and on the CPU."""
     import rtap_tpu_torch.ops.tm_learn as tl
     from rtap_tpu_torch.config import cluster_preset
     from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.obs import (
+        FlightRecorder,
+        LatencyTracker,
+        SloTracker,
+        TraceRecorder,
+        parse_slo,
+        validate_bundle,
+    )
     from rtap_tpu_torch.obs.health import HealthTracker
     from rtap_tpu_torch.obs.metrics import TelemetryRegistry
     from rtap_tpu_torch.ops.step import chunk_step
     from rtap_tpu_torch.predict import PredictTracker
+    from rtap_tpu_torch.service.attribution import AlertAttributor
     from rtap_tpu_torch.service.loop import live_loop
     from rtap_tpu_torch.service.registry import StreamGroupRegistry
 
     cfg = cluster_preset()
     ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
+
+    def obs_hooks(work):
+        reg = TelemetryRegistry()
+        lat = LatencyTracker(registry=reg)
+        slo = SloTracker([parse_slo("tick=1s@p99")], registry=reg, quantile_source=lat.quantile)
+        tr = TraceRecorder()
+        return dict(latency=lat, slo=slo, trace=tr, attributor=AlertAttributor(cfg),
+                    flight=FlightRecorder(trace=tr, n_ticks=64, registry=reg,
+                                          out_dir=os.path.join(work, "pm")))
 
     def source(k):
         rng = np.random.Generator(np.random.Philox(key=(seed, k)))
@@ -949,16 +1092,25 @@ def phase_flags_on_off(seed: int, card: str) -> dict:
                 reg.add_stream(sid)
             reg.finalize()
             trackers = dict(health=HealthTracker(cfg, registry=TelemetryRegistry()),
-                            predictor=PredictTracker(8, registry=TelemetryRegistry())) if on else {}
+                            predictor=PredictTracker(8, registry=TelemetryRegistry()),
+                            **obs_hooks(work)) if on else {}
             path = os.path.join(work, f"{name}.jsonl")
             tl.reset_launches()
             t0 = time.perf_counter()
             stats = live_loop(source, reg, n_ticks=DRILL_TICKS, cadence_s=0.0, alert_path=path,
                               pipeline_depth=2, **trackers)
             torch.cuda.synchronize()
+            lines = [ln for ln in open(path) if not ln.startswith('{"event"')]
             runs[name] = dict(reg=reg, stats=stats, launches=tl.launches,
-                              seconds=time.perf_counter() - t0,
-                              lines=[ln for ln in open(path) if not ln.startswith('{"event"')])
+                              seconds=time.perf_counter() - t0, lines=lines,
+                              # the alert records without their attribution block
+                              records=[json.dumps({k: v for k, v in json.loads(ln).items()
+                                                   if k != "top_fields"}) + "\n"
+                                       for ln in lines] if on else lines,
+                              top_fields=sum('"top_fields"' in ln for ln in lines),
+                              bundles_valid=all(validate_bundle(b)["ok"] for b in
+                                                stats.get("postmortem", {}).get("bundle_paths",
+                                                                                [])))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     on, off = runs["on"], runs["off"]
@@ -980,8 +1132,14 @@ def phase_flags_on_off(seed: int, card: str) -> dict:
     ewma = [g.last_predict["miss_ewma"] for g in on["reg"].groups]
     checks = {
         "model_leaves_equal": not leaf_diff,
-        "alert_lines_equal": on["lines"] == off["lines"],
+        # byte-equal once the attribution block is removed
+        "alert_lines_equal": on["records"] == off["lines"],
         "alert_lines": len(on["lines"]) == DRILL_STREAMS * DRILL_TICKS,
+        "top_fields": on["top_fields"] == len(on["lines"]),
+        "obs_on": on["stats"]["latency"]["ticks"] == DRILL_TICKS
+                  and on["stats"]["slo"]["slos"][0]["samples"] == DRILL_TICKS
+                  and on["stats"]["postmortem"]["ticks_recorded"] == DRILL_TICKS
+                  and on["bundles_valid"],
         "raw_bits_equal": np.array_equal(raws(on["lines"]).view(np.uint32),
                                          raws(off["lines"]).view(np.uint32)),
         "launches": on["launches"] == off["launches"] == 2 * DRILL_TICKS,
@@ -1024,7 +1182,12 @@ def phase_flags_on_off(seed: int, card: str) -> dict:
         raise AssertionError(f"card vs CPU: predict leaves {pred_bad}, state {state_bad}, "
                              f"raw equal {np.array_equal(rc, rp)}")
     row = dict(streams=DRILL_STREAMS, groups=2, ticks=DRILL_TICKS, horizon=8,
+               on_hooks=["health", "predict 8", "latency", "slo tick=1s@p99", "trace",
+                         "flight", "attribution"],
                model_leaves_compared=compared, alert_lines=len(on["lines"]),
+               alert_lines_with_top_fields=on["top_fields"],
+               latency_on=on["stats"]["latency"]["stages"]["tick"],
+               slo_on=on["stats"]["slo"], postmortem_on=on["stats"]["postmortem"],
                launches_on=on["launches"], launches_off=off["launches"],
                seconds_on=on["seconds"], seconds_off=off["seconds"],
                phase_ms_per_tick_on=on["stats"]["phase_ms_per_tick"],
@@ -1767,6 +1930,141 @@ def phase_report(card: str, work: str, eval_report: str) -> dict:
     return row
 
 
+def _chaos_soak(argv: list[str], work: str, tag: str) -> tuple[int, dict, float]:
+    """``python -m rtap_tpu_torch.chaos_soak`` (its main, in this process,
+    on cuda) -> (exit code, report, seconds); its report line is kept off
+    this script's stdout."""
+    import contextlib
+    import io
+
+    from rtap_tpu_torch import chaos_soak
+
+    out = os.path.join(work, f"{tag}.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = chaos_soak.main([*argv, "--device", "cuda", "--workdir", os.path.join(work, tag),
+                              "--out", out])
+    seconds = time.perf_counter() - t0
+    return rc, (json.load(open(out)) if os.path.exists(out) else {}), seconds
+
+
+def phase_resilience(card: str) -> dict:
+    """``rtap_tpu_torch.chaos_soak`` on the card: the seeded soak at full
+    width with an injected restore and its fault-free twin, the
+    degradation drill, the supervised kill drill, the topology burst."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.resilience import ChaosSpec
+
+    c = CHAOS_SOAK
+    work = tempfile.mkdtemp(prefix="rtap-chaos-")
+    soak_args = ["--seed", str(c["seed"]), "--streams", str(c["streams"]),
+                 "--group-size", str(c["group_size"]), "--ticks", str(c["ticks"]),
+                 "--cadence", str(c["cadence"]), "--checkpoint-every", str(c["checkpoint_every"]),
+                 "--restore-after", str(c["restore_after"]), "--rate", str(c["rate"])]
+    try:
+        rc, soak, soak_s = _chaos_soak(
+            [*soak_args, *(a for f in CHAOS_INJECT for a in ("--inject", f)), "--twin"],
+            work, "soak")
+        # the schedule this process draws on the host, beside the card run's
+        host_digest = ChaosSpec.generate(seed=c["seed"], n_ticks=c["ticks"],
+                                         n_groups=c["streams"] // c["group_size"],
+                                         rate=c["rate"]).digest()
+        d = DEGRADE_DRILL
+        drc, deg, deg_s = _chaos_soak(
+            ["--degrade", "--seed", str(c["seed"]), "--streams", str(d["streams"]),
+             "--group-size", str(d["group_size"]), "--ticks", str(d["ticks"]),
+             "--cadence", str(d["cadence"])], work, "degrade")
+        src, sup, sup_s = _chaos_soak(
+            ["--supervise", "--kills", str(SUPERVISE_KILLS), "--seed", str(c["seed"]),
+             "--streams", str(DRILL_STREAMS), "--group-size", str(DRILL_GROUP),
+             "--ticks", str(DRILL_TICKS), "--cadence", "0", "--rate", str(c["rate"]),
+             "--checkpoint-every", str(DRILL_CHECKPOINT_EVERY)], work, "supervise")
+        launches0 = tl.launches
+        trc, topo, topo_s = _chaos_soak(
+            ["--topology-burst", "--seed", str(c["seed"]), "--streams", "12",
+             "--group-size", "4", "--ticks", "120", "--cadence", "0"], work, "topology")
+        topo_launches = tl.launches - launches0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    stats = soak.get("stats", {})
+    last = sup.get("last_life") or {}
+    checks = {
+        "soak_verified": rc == 0 and soak.get("verified") is True,
+        "soak_digest": soak.get("schedule_digest") == host_digest,
+        "soak_restored": soak.get("quarantines", 0) >= 1
+                         and soak.get("restores") == soak.get("quarantines")
+                         and soak.get("unrestored") == [],
+        "soak_twin": bool(soak.get("twin", {}).get("groups_compared"))
+                     and soak["twin"]["leaves_equal"] is True,
+        "soak_launches": soak.get("kernel_launches") == stats.get("learned_group_ticks"),
+        "degrade": drc == 0 and deg.get("verified") is True
+                   and deg["degradation"]["max_level"] >= 1 and deg["degradation"]["level"] == 0
+                   and deg["kernel_launches"] == deg["learned_group_ticks"]
+                   < deg["group_ticks"],
+        "supervise": src == 0 and sup.get("verified") is True
+                     and sup["deaths"] == sup["restarts"] == SUPERVISE_KILLS
+                     and sup["ticks_completed"] == DRILL_TICKS
+                     and sup["journal_replay_events"] >= SUPERVISE_KILLS
+                     and sup["duplicated"] == 0
+                     and last.get("kernel_launches") == last.get("learned_group_ticks"),
+        "topology_burst": trc == 0 and topo.get("verified") is True and topo["incidents"] == 1,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"resilience on the card failed {bad}: soak "
+                             f"{ {k: soak.get(k) for k in ('failures', 'quarantines', 'restores', 'unrestored', 'twin', 'schedule_digest')} }, "
+                             f"degrade {deg.get('failures')} {deg.get('degradation')}, "
+                             f"supervise {sup.get('failures')}, topology {topo.get('failures')}")
+    row = dict(soak=dict(**c, inject=list(CHAOS_INJECT), seconds=soak_s,
+                         schedule_digest=soak["schedule_digest"], host_digest=host_digest,
+                         run_digest=soak["run_digest"], faults_injected=soak["faults_injected"],
+                         quarantines=soak["quarantines"], restores=soak["restores"],
+                         restore_s=stats.get("restore_s"), twin=soak["twin"],
+                         scored_by_group=stats["scored_by_group"],
+                         latency_p50_ms=stats["latency_p50_ms"],
+                         latency_p99_ms=stats["latency_p99_ms"],
+                         phase_ms_per_tick=stats["phase_ms_per_tick"],
+                         group_save_s_mean=stats.get("group_save_s_mean"),
+                         checkpoint_save_failures=stats.get("checkpoint_save_failures", 0),
+                         postmortem_bundles=len(soak["postmortem"]["bundles"]),
+                         kernel_launches=soak["kernel_launches"],
+                         learned_group_ticks=stats["learned_group_ticks"]),
+               degrade=dict(**DEGRADE_DRILL, seconds=deg_s, degradation=deg["degradation"],
+                            hang_ticks=deg["hang_ticks"], events=deg["events"],
+                            missed_deadlines=deg["missed_deadlines"],
+                            kernel_launches=deg["kernel_launches"],
+                            learned_group_ticks=deg["learned_group_ticks"],
+                            group_ticks=deg["group_ticks"]),
+               supervise=dict(streams=DRILL_STREAMS, groups=DRILL_STREAMS // DRILL_GROUP,
+                              ticks=DRILL_TICKS, kills=SUPERVISE_KILLS, seconds=sup_s,
+                              proc_exit_ticks=sup["proc_exit_ticks"], deaths=sup["deaths"],
+                              restarts=sup["restarts"], alert_ids=sup["alert_ids"],
+                              journal_replay_events=sup["journal_replay_events"],
+                              last_life=last),
+               topology_burst=dict(streams=12, group_size=4, ticks=120, seconds=topo_s,
+                                   burst_nodes=topo["burst_nodes"],
+                                   burst_groups=topo["burst_groups"], incidents=1,
+                                   kernel_launches=topo_launches),
+               card=card)
+    emit("resilience", **row)
+    return row
+
+
+def phase_obs_cost(card: str) -> dict:
+    """``obs/selfbench``'s measures in this process, on the card's host
+    while the card is warm: each at most 1% of the 1 s tick budget."""
+    from rtap_tpu_torch.obs.selfbench import GATE_BUDGET_FRAC, GATE_MEASURES
+
+    results = {name: fn() for name, fn in GATE_MEASURES}
+    bad = {n: r["per_tick_overhead_frac"] for n, r in results.items()
+           if not r["per_tick_overhead_frac"] <= GATE_BUDGET_FRAC}
+    if bad:
+        raise AssertionError(f"obs cost over {GATE_BUDGET_FRAC:.0%} of the tick budget: {bad}")
+    row = dict(budget_frac=GATE_BUDGET_FRAC, measures=results, card=card)
+    emit("obs_cost", **row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1784,7 +2082,11 @@ def main() -> int:
         return 2
     if args.child:
         return run_drill_child(args)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    # child processes (serve, the supervised chaos child) import the port
+    # from the checkout
+    os.chdir(here)
     from rtap_tpu_torch.config import (categorical_preset, cluster_preset, composite_preset,
                                        nab_preset, node_preset)
     from rtap_tpu_torch.ops import _build
@@ -1910,6 +2212,17 @@ def main() -> int:
         mark(18)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # 19. resilience on the card: the chaos soak, its drills
+    res = phase_resilience(smi)
+    rows["chaos_soak"] = res["soak"]["kernel_launches"]
+    rows["degrade"] = res["degrade"]["kernel_launches"]
+    rows["supervise_last_life"] = res["supervise"]["last_life"]["kernel_launches"]
+    rows["topology_burst"] = res["topology_burst"]["kernel_launches"]
+    torch.cuda.empty_cache()
+    mark(19)
+    # 20. the obs cost gate
+    phase_obs_cost(smi)
+    mark(20)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,

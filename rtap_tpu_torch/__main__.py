@@ -14,8 +14,13 @@
 
 All run on cuda unless --device cpu. The flags mirror the JAX package's
 subcommands where they apply (``--device`` takes the place of
-``--backend``); every JAX serve flag this package does not port yet exits 2
-naming it, so nothing is silently ignored.
+``--backend``). ``serve`` takes the JAX package's resilience and
+observability flags (--chaos-spec, --degrade*, --quarantine-restore-after,
+--supervise*, --latency*, --slo*, --trace-*, --postmortem-dir,
+--flight-ticks, --obs-port, --obs-snapshot, --alert-attribution); every JAX
+serve flag this package does not port yet exits 2 naming it and the queue
+item that ports it (:data:`UNPORTED_SERVE_FLAGS`), so nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -30,31 +35,27 @@ import time
 
 from rtap_tpu_torch.eval.report import add_report_flags
 
-#: JAX-package serve flags not ported yet -> (takes a value, ROADMAP.md queue
-#: item that ports it; "--device" for the flag it replaces). Each is parsed
-#: (hidden) so that giving it exits 2 with its name instead of argparse's
-#: generic error.
+#: JAX-package serve flags not ported yet -> (takes a value, why: the
+#: ROADMAP.md queue item that ports it, or the flag that replaces it). Each
+#: is parsed (hidden) so that giving it exits 2 with its name instead of
+#: argparse's generic error.
 UNPORTED_SERVE_FLAGS = {
-    **dict.fromkeys(("--chaos-spec", "--degrade-after", "--degrade-recover-after",
-                     "--quarantine-restore-after", "--supervise-restarts",
-                     "--supervise-backoff", "--replicate-to", "--replicate-listen",
-                     "--lease-file", "--lease-timeout", "--control-listen",
-                     "--control-journal", "--control-join", "--control-grace"),
-                    (True, "the resilience slice")),
-    **dict.fromkeys(("--degrade", "--supervise", "--standby", "--control-only"),
-                    (False, "the resilience slice")),
-    **dict.fromkeys(("--fleet-join", "--fleet-listen", "--fleet-push-interval"),
-                    (True, "the resilience slice")),
+    **dict.fromkeys(("--replicate-to", "--replicate-listen", "--lease-file",
+                     "--lease-timeout", "--control-listen", "--control-journal",
+                     "--control-join", "--control-grace", "--fleet-join", "--fleet-listen",
+                     "--fleet-push-interval"),
+                    (True, "replication, leases and the fleet plane; ROADMAP.md queue A, M5")),
+    **dict.fromkeys(("--standby", "--control-only"),
+                    (False, "replication, leases and the fleet plane; ROADMAP.md queue A, M5")),
     **dict.fromkeys(("--ingest-port", "--ingest-shm", "--ingest-quota",
-                     "--ingest-backfill-horizon"), (True, "binary ingest")),
-    **dict.fromkeys(("--latency-window", "--slo", "--slo-fast-window", "--slo-slow-window",
-                     "--trace-out", "--trace-ring", "--postmortem-dir", "--flight-ticks",
-                     "--obs-port", "--obs-snapshot", "--jax-trace"),
-                    (True, "observability")),
-    **dict.fromkeys(("--latency", "--alert-attribution"), (False, "observability")),
+                     "--ingest-backfill-horizon"),
+                    (True, "binary ingest; ROADMAP.md queue A, M4")),
     **dict.fromkeys(("--chunk-stagger", "--stagger-learn", "--aot-warmup"),
-                    (False, "scheduling")),
-    "--backend": (True, "--device"),
+                    (False, "the scheduling flags; ROADMAP.md queue A, M7")),
+    # an XLA device trace has no meaning here
+    "--jax-trace": (True, "it traces XLA programs; the port's device profiler is "
+                          "python -m rtap_tpu_torch.profile_tick"),
+    "--backend": (True, "it takes --device cuda|cpu"),
 }
 
 
@@ -88,18 +89,19 @@ def _serve_preset(args: argparse.Namespace):
 
 def _refused_serve_flag(args: argparse.Namespace) -> str | None:
     """The first given serve flag this package does not port, with why."""
-    for flag, (_takes_value, where) in UNPORTED_SERVE_FLAGS.items():
+    for flag, (_takes_value, why) in UNPORTED_SERVE_FLAGS.items():
         v = getattr(args, "unported_" + flag[2:].replace("-", "_"))
         if v is None or v is False:
             continue
-        if where == "--device":
-            return f"{flag} is not ported to rtap_tpu_torch: it takes --device cuda|cpu"
-        return f"{flag} is not ported to rtap_tpu_torch yet ({where}; ROADMAP.md queue A)"
-    for flag, ok, where in (("--shard", args.shard == 0, "A.11"),
-                            ("--dispatch-threads", args.dispatch_threads == 1, "scheduling")):
+        if "ROADMAP.md" in why:  # queued for a later slice
+            return f"{flag} is not ported to rtap_tpu_torch yet ({why})"
+        return f"{flag} is not ported to rtap_tpu_torch: {why}"
+    for flag, ok, where in (("--shard", args.shard == 0, "sharding; ROADMAP.md queue A, M5"),
+                            ("--dispatch-threads", args.dispatch_threads == 1,
+                             "the scheduling flags; ROADMAP.md queue A, M7")):
         if not ok:
             return (f"{flag} {getattr(args, flag[2:].replace('-', '_'))} is not ported to "
-                    f"rtap_tpu_torch yet ({where}; ROADMAP.md queue A)")
+                    f"rtap_tpu_torch yet ({where})")
     return None
 
 
@@ -127,6 +129,111 @@ def _model_side_usage_error(args: argparse.Namespace) -> str | None:
     if args.predict_min_ticks is not None and args.predict_min_ticks < 1:
         return "--predict-min-ticks must be >= 1"
     return None
+
+
+def _resilience_obs_usage_error(args: argparse.Namespace) -> str | None:
+    """The JAX package's usage errors of the latency/SLO, quarantine and
+    supervision flags, checked before any device work."""
+    if args.slo and not args.latency:
+        return ("--slo declares an objective over the latency tracker's "
+                "measurements; add --latency")
+    if args.latency_window is not None and not args.latency:
+        return "--latency-window sizes the quantile-sketch window; add --latency"
+    if (args.slo_fast_window is not None or args.slo_slow_window is not None) \
+            and not args.slo:
+        return ("--slo-fast-window/--slo-slow-window are burn-rate knobs; add "
+                "--slo NAME=TARGET@pQ")
+    if args.latency_window is not None and args.latency_window < 1:
+        return "--latency-window must be >= 1"
+    if args.quarantine_restore_after < 0:
+        return (f"--quarantine-restore-after must be >= 0; got "
+                f"{args.quarantine_restore_after}")
+    if args.quarantine_restore_after and not args.checkpoint_dir:
+        return ("--quarantine-restore-after needs --checkpoint-dir: restore means "
+                "re-loading the group's last checkpoint")
+    if args.trace_ring < 1:
+        return f"--trace-ring must be >= 1; got {args.trace_ring}"
+    if args.flight_ticks < 1:
+        return f"--flight-ticks must be >= 1; got {args.flight_ticks}"
+    if args.supervise and not args.checkpoint_dir:
+        return ("--supervise needs --checkpoint-dir (a restarted child must resume "
+                "its fleet, not rescore from scratch); add --journal-dir for "
+                "tick-exact catch-up")
+    return None
+
+
+def _resilience_obs(args: argparse.Namespace):
+    """(chaos spec, degradation, latency, slo) from the flags, each None
+    when off; a bad value is a usage error raised as ValueError with the
+    JAX package's message."""
+    from rtap_tpu_torch.obs import LatencyTracker, SloTracker, parse_slo
+    from rtap_tpu_torch.resilience import ChaosSpec, DegradationController
+
+    spec = None
+    if args.chaos_spec:
+        try:
+            spec = ChaosSpec.from_file(args.chaos_spec)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            raise ValueError(f"bad --chaos-spec {args.chaos_spec}: {e}") from e
+        print(f"serve: chaos spec loaded ({len(spec.faults)} faults, digest "
+              f"{spec.digest()})", file=sys.stderr)
+    try:
+        slo_specs = [parse_slo(x) for x in args.slo or ()]
+    except ValueError as e:
+        raise ValueError(f"bad --slo: {e}") from e
+    latency = slo = None
+    if args.latency:
+        try:
+            latency = LatencyTracker(window_ticks=args.latency_window
+                                     if args.latency_window is not None else 120,
+                                     cadence_s=args.cadence)
+        except ValueError as e:
+            raise ValueError(f"bad --latency-window: {e}") from e
+        print(f"serve: detection-latency tracking armed (window {latency.window_ticks} "
+              "ticks; GET /latency with --obs-port)", file=sys.stderr)
+    if slo_specs:
+        try:
+            slo = SloTracker(slo_specs, cadence_s=args.cadence,
+                             fast_window=args.slo_fast_window
+                             if args.slo_fast_window is not None else 60,
+                             slow_window=args.slo_slow_window
+                             if args.slo_slow_window is not None else 600,
+                             quantile_source=latency.quantile)
+        except ValueError as e:
+            raise ValueError(f"bad --slo/--slo-*-window: {e}") from e
+        print("serve: SLOs armed: " + ", ".join(x.label() for x in slo_specs)
+              + f" (burn windows {slo.fast_window}/{slo.slow_window} ticks)",
+              file=sys.stderr)
+    degradation = None
+    if args.degrade:
+        try:
+            degradation = DegradationController(degrade_after=args.degrade_after,
+                                                recover_after=args.degrade_recover_after)
+        except ValueError as e:
+            raise ValueError(f"bad --degrade parameters: {e}") from e
+    return spec, degradation, latency, slo
+
+
+def _supervise(args: argparse.Namespace) -> int:
+    """``serve --supervise``: run ``python -m rtap_tpu_torch serve`` (the
+    same argv, the supervisor's own flags removed) as a child and restart
+    it after every abnormal death. This process never touches the card:
+    the child owns it."""
+    from rtap_tpu_torch.resilience.supervisor import Supervisor, strip_supervise_flags
+
+    if not args.journal_dir:
+        print("serve: --supervise without --journal-dir will lose the ticks since the "
+              "last checkpoint on every restart (continuity yes, bit-exact catch-up no)",
+              file=sys.stderr)
+    child = [sys.executable, "-m", "rtap_tpu_torch", *strip_supervise_flags(args.argv)]
+    sup = Supervisor(child, restart_budget=args.supervise_restarts,
+                     backoff_base_s=args.supervise_backoff,
+                     backoff_max_s=max(30.0, args.supervise_backoff),
+                     event_path=args.alerts, postmortem_dir=args.postmortem_dir,
+                     log=lambda m: print(m, file=sys.stderr))
+    print(f"serve: supervising {' '.join(child[3:])} (restart budget "
+          f"{args.supervise_restarts})", file=sys.stderr)
+    return sup.run()
 
 
 def _model_side_trackers(args: argparse.Namespace, cfg, ids: list[str], predict_k: int):
@@ -185,7 +292,8 @@ def _model_side_trackers(args: argparse.Namespace, cfg, ids: list[str], predict_
 
 
 def _cmd_serve(args: argparse.Namespace) -> int:
-    refused = _refused_serve_flag(args) or _model_side_usage_error(args)
+    refused = _refused_serve_flag(args) or _model_side_usage_error(args) \
+        or _resilience_obs_usage_error(args)
     if refused:
         print(f"serve: {refused}", file=sys.stderr)
         return 2
@@ -197,7 +305,18 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     if args.streams is None:
         print("serve: --streams is required", file=sys.stderr)
         return 2
-    from rtap_tpu_torch.obs.health import bump_run_epoch
+    if args.supervise:
+        # before any device work: the parent must never hold the card its
+        # child needs
+        return _supervise(args)
+    from rtap_tpu_torch.obs import (
+        ExpositionServer,
+        FlightRecorder,
+        TraceRecorder,
+        default_snapshot_path,
+        write_snapshot,
+    )
+    from rtap_tpu_torch.obs.health import bump_run_epoch, set_build_info
     from rtap_tpu_torch.obs.metrics import get_registry
     from rtap_tpu_torch.resilience.journal import TickJournal, parse_fsync
     from rtap_tpu_torch.service.checkpoint import peek_resume_ticks
@@ -235,6 +354,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         if args.predict else 0
     try:
         health, correlator, predictor = _model_side_trackers(args, cfg, ids, predict_k)
+        chaos_spec, degradation, latency, slo = _resilience_obs(args)
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 2
@@ -268,13 +388,52 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             print(f"serve: resuming at tick {base} ({len(journal.recovered_ticks)} "
                   f"journaled rows recovered; --ticks {args.ticks} is the total "
                   f"budget -> {n_ticks} new ticks)", file=sys.stderr)
+        if base and chaos_spec is not None:
+            # the schedule is GLOBAL-tick-indexed: a restarted serve shifts it
+            # onto its local clock, so the proc_exit that killed the previous
+            # incarnation does not fire again
+            chaos_spec = chaos_spec.shifted(base)
+            print(f"serve: chaos schedule shifted to resume base {base} "
+                  f"({len(chaos_spec.faults)} faults remain)", file=sys.stderr)
         if journal.truncations or journal.dropped_segments:
             print(f"serve: journal tail truncated on recovery ({journal.truncations} "
                   f"truncation(s), {journal.truncated_bytes} bytes, "
                   f"{journal.dropped_segments} dropped segment(s)) — continuing "
                   "from the last valid record", file=sys.stderr)
-    # restart continuity: <alerts>.epoch counts this serve's starts
-    bump_run_epoch(args.alerts)
+    chaos = None
+    if chaos_spec is not None:
+        from rtap_tpu_torch.resilience import ChaosEngine
+
+        chaos = ChaosEngine(chaos_spec)
+    # restart continuity: <alerts>.epoch counts this serve's starts; the
+    # build-info gauge says who this process is
+    run_epoch = bump_run_epoch(args.alerts)
+    set_build_info(role="leader", shard=args.shard, run_epoch=run_epoch, config=cfg)
+    # the span ring also backs the obs server's /trace route
+    trace = flight = None
+    if args.trace_out or args.postmortem_dir or args.obs_port is not None:
+        trace = TraceRecorder(capacity=args.trace_ring,
+                              process_name=f"rtap-serve-{os.getpid()}")
+    if args.postmortem_dir:
+        os.makedirs(args.postmortem_dir, exist_ok=True)
+        flight = FlightRecorder(
+            trace=trace, n_ticks=args.flight_ticks, out_dir=args.postmortem_dir,
+            info={"command": "serve", "streams": len(ids), "group_size": gsize,
+                  "cadence_s": args.cadence, "ticks": args.ticks,
+                  "device": str(reg.device), "preset": args.preset,
+                  "micro_chunk": args.micro_chunk,
+                  "pipeline_depth": args.pipeline_depth, "freeze": bool(args.freeze)})
+        print(f"serve: flight recorder armed (last {args.flight_ticks} ticks -> "
+              f"{args.postmortem_dir})", file=sys.stderr)
+    attributor = None
+    if args.alert_attribution:
+        from rtap_tpu_torch.service.attribution import AlertAttributor
+
+        attributor = AlertAttributor(cfg)
+    if latency is not None and correlator is not None:
+        # the incident-close lag gauge, polled once per tick
+        latency.lag_providers["incident_close_s"] = \
+            lambda _t, ts: correlator.oldest_open_age_s(ts)
     # orderly shutdown: SIGTERM/SIGINT finish the current tick, save final
     # state and still print stats; a second signal force-exits
     stop = threading.Event()
@@ -297,22 +456,65 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         print(f"serve: listening for JSONL records on {host}:{port}", file=sys.stderr,
               flush=True)
         source, close = tcp, tcp.close
+    obs_server = None
+    if args.obs_port is not None:
+        obs_server = ExpositionServer(
+            port=args.obs_port, trace=trace, flight=flight, health=health,
+            correlator=correlator, latency=latency, slo=slo, predict=predictor,
+            healthz_stale_after_s=max(30.0, 10 * args.cadence)).start()
+        ohost, oport = obs_server.address
+        print(f"serve: obs telemetry on http://{ohost}:{oport}/metrics", file=sys.stderr,
+              flush=True)
+    obs_snapshot = args.obs_snapshot or default_snapshot_path()
     try:
-        stats = live_loop(source, reg, n_ticks=n_ticks, cadence_s=args.cadence,
-                          alert_path=args.alerts, checkpoint_dir=args.checkpoint_dir,
-                          checkpoint_every=args.checkpoint_every, stop_event=stop,
-                          pipeline_depth=args.pipeline_depth, learn=not args.freeze,
-                          auto_register=args.auto_register,
-                          auto_release_after=args.auto_release_after,
-                          micro_chunk=args.micro_chunk,
-                          alert_flush_every=args.alert_flush_every, journal=journal,
-                          health=health, correlator=correlator, predictor=predictor)
+        try:
+            stats = live_loop(source, reg, n_ticks=n_ticks, cadence_s=args.cadence,
+                              alert_path=args.alerts, checkpoint_dir=args.checkpoint_dir,
+                              checkpoint_every=args.checkpoint_every, stop_event=stop,
+                              pipeline_depth=args.pipeline_depth, learn=not args.freeze,
+                              auto_register=args.auto_register,
+                              auto_release_after=args.auto_release_after,
+                              micro_chunk=args.micro_chunk, chaos=chaos,
+                              degradation=degradation,
+                              quarantine_restore_after=args.quarantine_restore_after,
+                              alert_flush_every=args.alert_flush_every, trace=trace,
+                              flight=flight, attributor=attributor, journal=journal,
+                              health=health, correlator=correlator, latency=latency,
+                              slo=slo, predictor=predictor)
+        except BaseException as e:
+            # the crash black box: an exception escaping serve dumps a
+            # postmortem bundle before the traceback
+            if flight is not None:
+                flight.record_event({"event": "unhandled_exception",
+                                     "error": f"{type(e).__name__}: {e}"})
+                flight.dump("unhandled_exception")
+            raise
     finally:
         for sig, handler in prev.items():
             signal.signal(sig, handler)
         close()
         if journal is not None:
             journal.close()
+        if obs_server is not None:
+            obs_server.close()
+        if args.trace_out and trace is not None:
+            # Chrome trace JSON, atomically (tmp + replace), even on an
+            # error path; best effort: it must not mask the loop's exception
+            try:
+                tmp = args.trace_out + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(trace.chrome_trace(), f)
+                os.replace(tmp, args.trace_out)
+                print(f"serve: host trace written to {args.trace_out} ({trace.total} "
+                      f"records, {trace.dropped} dropped)", file=sys.stderr)
+            except OSError as e:
+                print(f"serve: trace write failed: {e}", file=sys.stderr)
+        if obs_snapshot:
+            # the final registry snapshot, even on an error path
+            try:
+                write_snapshot(obs_snapshot)
+            except OSError as e:
+                print(f"serve: obs snapshot write failed: {e}", file=sys.stderr)
     # ingest health belongs in the service artifact: a zero-missed-deadline
     # line is only evidence if data was flowing and parsing cleanly
     for attr in ("records_parsed", "parse_errors", "unknown_ids", "native_active",
@@ -322,8 +524,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             stats[attr] = v
     stats["device"] = str(reg.device)
     stats["preset"] = args.preset
-    # the process's telemetry registry, read once at exit (the JAX
-    # package's live exposition, --obs-port/--obs-snapshot, is not ported)
+    # the process's telemetry registry, read once at exit (live: --obs-port)
     stats["telemetry"] = get_registry().snapshot()
     print(json.dumps(stats))
     return 0
@@ -479,6 +680,73 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
                         "meta.json); a rerun with the same dir resumes every group")
 
 
+def _add_resilience_obs_flags(p: argparse.ArgumentParser) -> None:
+    """serve's resilience and observability flags (the JAX package's)."""
+    p.add_argument("--chaos-spec", default=None,
+                   help="JSON fault-injection schedule ({'seed': S, 'faults': [...]} or "
+                        "{'seed': S, 'generate': {'n_ticks': T, 'n_groups': G, 'rate': R}}): "
+                        "source timeouts, dispatch/collect exceptions, alert-sink and "
+                        "checkpoint OSErrors, proc_exit etc. at exactly the scheduled ticks")
+    p.add_argument("--degrade", action="store_true",
+                   help="shed load under sustained deadline misses down the ladder "
+                        "learn_thin -> score_only -> tick_widen, with hysteresis; emits "
+                        "degraded/recovered events and rtap_obs_degradation_level")
+    p.add_argument("--degrade-after", type=int, default=3,
+                   help="misses within the 10-tick window that escalate the ladder one "
+                        "level (with --degrade)")
+    p.add_argument("--degrade-recover-after", type=int, default=15,
+                   help="consecutive clean ticks that de-escalate one level (with --degrade)")
+    p.add_argument("--quarantine-restore-after", type=int, default=0,
+                   help="re-load a quarantined group from its last checkpoint after this "
+                        "many ticks (needs --checkpoint-dir; 0 = quarantine is permanent "
+                        "for the run)")
+    p.add_argument("--supervise", action="store_true",
+                   help="run serve as a supervised child process: abnormal deaths restart "
+                        "it with exponential backoff under a restart budget, each death "
+                        "evented on the alert stream (needs --checkpoint-dir; pair with "
+                        "--journal-dir for tick-exact catch-up)")
+    p.add_argument("--supervise-restarts", type=int, default=10,
+                   help="supervisor restart budget: abnormal deaths beyond it exit 3")
+    p.add_argument("--supervise-backoff", type=float, default=0.5,
+                   help="supervisor restart backoff base seconds (doubles per fast death, "
+                        "capped at 30 s)")
+    p.add_argument("--latency", action="store_true",
+                   help="detection-latency observability: per-tick stage waterfalls and a "
+                        "per-alert end-to-end detect sketch (host wall clocks only: the "
+                        "alert stream and model state are the same with it off)")
+    p.add_argument("--latency-window", type=int, default=None,
+                   help="quantile-sketch window in ticks (default 120); needs --latency")
+    p.add_argument("--slo", action="append", default=None, metavar="NAME=TARGET@pQ",
+                   help="declare a latency SLO (repeatable), e.g. detect=2s@p99 or "
+                        "tick=500ms@p95, judged with fast/slow burn rates; slo_burn events "
+                        "ride the alert stream; needs --latency")
+    p.add_argument("--slo-fast-window", type=int, default=None,
+                   help="fast burn-rate window in ticks (default 60); needs --slo")
+    p.add_argument("--slo-slow-window", type=int, default=None,
+                   help="slow burn-rate window in ticks (default 600); needs --slo")
+    p.add_argument("--trace-out", default=None,
+                   help="write the per-tick host span timeline as Chrome trace JSON here "
+                        "on exit (also GET /trace?last=N with --obs-port)")
+    p.add_argument("--trace-ring", type=int, default=65536,
+                   help="span-ring capacity in records per writer thread")
+    p.add_argument("--postmortem-dir", default=None,
+                   help="arm the flight recorder: the last --flight-ticks ticks dump here "
+                        "as a postmortem bundle on a quarantine, a ladder move, a miss "
+                        "burst, an incident or a crash")
+    p.add_argument("--flight-ticks", type=int, default=240,
+                   help="flight-recorder window in ticks")
+    p.add_argument("--obs-port", type=int, default=None,
+                   help="serve the telemetry over localhost HTTP (GET /metrics, /healthz, "
+                        "/snapshot, /trace, /latency, /slo, /health, /predict, /incidents, "
+                        "/postmortem); 0 binds an ephemeral port")
+    p.add_argument("--obs-snapshot", default=None,
+                   help="append one JSONL telemetry snapshot line to this file on exit "
+                        "(default: $RTAP_OBS_SNAPSHOT if set)")
+    p.add_argument("--alert-attribution", action="store_true",
+                   help="alert lines gain a top_fields block naming the encoder fields "
+                        "whose representation moved most")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m rtap_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -578,6 +846,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--correlate-min-streams", type=int, default=None,
                    help="distinct alerting streams a closed window needs to emit an "
                         "incident (default 3); needs --topology")
+    _add_resilience_obs_flags(p)
     for flag, (takes_value, _where) in UNPORTED_SERVE_FLAGS.items():
         dest = "unported_" + flag[2:].replace("-", "_")
         if flag == "--aot-warmup":
@@ -661,6 +930,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # serve --supervise re-runs this argv (its own flags removed) as the child
+    args.argv = list(argv) if argv is not None else sys.argv[1:]
     # a usage error surfaces before any device work
     if getattr(args, "preset", "cluster") != "cluster" and \
             getattr(args, "columns", None) is not None:

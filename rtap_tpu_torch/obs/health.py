@@ -448,3 +448,43 @@ def bump_run_epoch(beside_path: str | None,
         "stream; bumped once per process start so dashboards can tell "
         "supervisor-restart counter resets from rollovers)").set(epoch)
     return epoch
+
+
+def config_digest(config) -> str:
+    """Stable short digest of a (nested, frozen-dataclass) config.
+
+    Two serves score identically only if their configs match; the digest
+    makes that comparable across the fleet without shipping the whole
+    config. json with sorted keys over ``dataclasses.asdict`` is the
+    canonical form; 12 hex chars is plenty for a label value.
+    """
+    import dataclasses
+    import hashlib
+
+    body = dataclasses.asdict(config) if dataclasses.is_dataclass(config) \
+        else config
+    canon = json.dumps(body, sort_keys=True, default=str)
+    return hashlib.sha256(canon.encode()).hexdigest()[:12]
+
+
+def set_build_info(*, role: str, shard: int, run_epoch: int,
+                   config, registry: TelemetryRegistry | None = None) -> str:
+    """Set the always-on ``rtap_obs_build_info`` identity gauge (value 1).
+
+    The info-gauge idiom: identity rides the LABELS (role, shard,
+    run_epoch, config_hash), the value is constant 1, so every scrape and
+    snapshot carries who this process is — dashboards join per-member
+    series on it instead of guessing identity from ports. Returns the
+    config hash (the JAX package's for an equal config). ``config`` may be
+    a config dataclass or an already-computed hash string.
+    """
+    config_hash = config if isinstance(config, str) else \
+        config_digest(config)
+    (registry or get_registry()).gauge(
+        "rtap_obs_build_info",
+        "constant-1 identity gauge; the labels carry who this process "
+        "is (role, shard, run_epoch, config_hash) so per-member series "
+        "join without port-guessing",
+        role=str(role), shard=str(int(shard)),
+        run_epoch=str(int(run_epoch)), config_hash=config_hash).set(1)
+    return config_hash

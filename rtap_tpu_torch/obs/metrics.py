@@ -248,6 +248,7 @@ class TelemetryRegistry:
         self._instruments: dict[tuple, _Instrument] = {}
         self._types: dict[str, str] = {}
         self._buckets: dict[str, tuple] = {}
+        self._help: dict[str, str] = {}  # one HELP string per metric name
 
     def _get_or_create(self, cls, name: str, help: str,
                        labels: dict[str, str], **kw) -> _Instrument:
@@ -277,6 +278,8 @@ class TelemetryRegistry:
                     kw["buckets"] = buckets
                 inst = cls(name, help=help, labels=labels, **kw)
                 self._types[name] = cls.kind
+                if help:
+                    self._help.setdefault(name, help)
                 self._instruments[key] = inst
             elif inst.kind != cls.kind:
                 raise ValueError(
@@ -301,6 +304,10 @@ class TelemetryRegistry:
         with self._lock:
             items = sorted(self._instruments.items())
         return [inst for _, inst in items]
+
+    def help_for(self, name: str) -> str:
+        """The metric's HELP string (the Prometheus text header)."""
+        return self._help.get(name, "")
 
     def snapshot(self) -> dict:
         """Point-in-time JSON-able view of every instrument."""

@@ -1,7 +1,6 @@
 """Tick watchdog: deadline/starvation/stall events for the live serve loop.
 
-The port's copy of the JAX package's ``obs/watchdog.py`` without the trace
-and flight-recorder hooks (not ported). The 1 s-cadence serve loop is a
+The port's copy of the JAX package's ``obs/watchdog.py``. The 1 s-cadence serve loop is a
 real-time contract whose failures are structured: a tick over budget, a
 dead feeder (an all-NaN source vector), an inline checkpoint save that eats
 a tick. The watchdog turns them into registry counters and structured JSONL
@@ -36,7 +35,8 @@ class TickWatchdog:
                  registry: TelemetryRegistry | None = None,
                  event_sink: Callable[[dict], None] | None = None,
                  starved_after: int = 3,
-                 checkpoint_stall_s: float | None = None):
+                 checkpoint_stall_s: float | None = None,
+                 trace=None, flight=None):
         if starved_after < 1:
             raise ValueError(f"starved_after must be >= 1; got {starved_after}")
         reg = registry or get_registry()
@@ -45,6 +45,11 @@ class TickWatchdog:
             checkpoint_stall_s if checkpoint_stall_s is not None else cadence_s)
         self.starved_after = int(starved_after)
         self._sink = event_sink
+        # optional timeline hooks (obs/trace.py, obs/flight.py): every
+        # watchdog event also lands as an instant on the span timeline and
+        # in the flight recorder's bounded event ring
+        self._trace = trace
+        self._flight = flight
         self._starved_run = 0
         self._missed = reg.counter(
             "rtap_obs_missed_ticks_total",
@@ -56,8 +61,22 @@ class TickWatchdog:
             for kind in ("missed_tick", "source_starved", "checkpoint_stall")
         }
 
+    def set_cadence(self, cadence_s: float) -> None:
+        """Adopt a new cadence mid-run (the degradation ladder's tick_widen
+        step changes the real-time contract, and misses are judged against
+        the contract in force). The stall budget follows when it was
+        tracking the cadence; an explicit checkpoint_stall_s stays put."""
+        tracking = self.checkpoint_stall_s == self.cadence_s
+        self.cadence_s = float(cadence_s)
+        if tracking:
+            self.checkpoint_stall_s = self.cadence_s
+
     def _emit(self, kind: str, tick: int, **fields) -> None:
         self._events[kind].inc()
+        if self._trace is not None:
+            self._trace.add_instant(kind, int(tick), fields)
+        if self._flight is not None:
+            self._flight.record_event({"event": kind, "tick": int(tick), **fields})
         if self._sink is not None:
             self._sink({"event": kind, "tick": int(tick), **fields})
 

@@ -5,8 +5,9 @@ object per alert, byte for byte the JAX package's lines
 (:func:`format_alert_line`), structured events on the same stream, the
 alert-delivery cursor and resume suppression that make alerts exactly-once
 across a crash, the incident correlator's fold of every delivered alert,
-and the "anomaly-scored metrics/sec" counter. Alert attribution, leader
-fencing and latency tracking hooks are not ported.
+and the "anomaly-scored metrics/sec" counter, with the per-alert
+``top_fields`` attribution and the detection-latency hook. Leader fencing
+is not ported (it belongs to replication, ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from rtap_tpu_torch.resilience.policies import CircuitBreaker
 
 
 def format_alert_line(alert_id, stream: str, ts: int, value,
-                      raw_score: float, log_likelihood: float) -> str:
+                      raw_score: float, log_likelihood: float,
+                      top_fields=None) -> str:
     """THE alert-line serialization, identical to the JAX package's for
     identical inputs. ``value`` may be a scalar or a 1-D multivariate
     row."""
@@ -38,6 +40,7 @@ def format_alert_line(alert_id, stream: str, ts: int, value,
             else [float(x) for x in val],
             "raw_score": float(raw_score),
             "log_likelihood": float(log_likelihood),
+            **({"top_fields": top_fields} if top_fields is not None else {}),
         }
     ) + "\n"
 
@@ -93,14 +96,25 @@ class AlertWriter:
     reached the sink, suppressed lines left out, also folds into the
     correlator's windows, with the sink offset before the batch as its
     crash-resume anchor — so the fold mirrors the disk exactly once.
+
+    `attributor` (service.attribution.AlertAttributor, serve
+    --alert-attribution): alert lines gain a ``top_fields`` block; its
+    history advances on every batch, alert or not.
+
+    `latency` (obs.LatencyTracker, serve --latency): every batch that
+    reached the sink observes wall clock minus each alert's source
+    timestamp into the end-to-end ``detect`` sketch. Pure observation: the
+    bytes on the stream are the same with it or without it.
     """
 
     def __init__(self, path: str | None = None, flush_every: int = 1, breaker=None,
-                 correlator=None):
+                 attributor=None, correlator=None, latency=None):
         if flush_every < 1:
             raise ValueError(f"flush_every must be >= 1; got {flush_every}")
         self.path = path
+        self._attributor = attributor
         self._correlator = correlator
+        self._latency = latency
         self._offset = 0  # bytes handed to the sink (the alert cursor)
         self.torn_heals = 0
         if path:
@@ -148,6 +162,12 @@ class AlertWriter:
                 "structured resilience events by kind", event=kind)
             for kind in ("alert_sink_quarantined", "alert_sink_restored")
         }
+
+    def wrap_sink(self, wrap) -> None:
+        """Wrap the underlying file object (the chaos engine's injection
+        seam: faults land UNDER the retry/quarantine path, proving it)."""
+        if self._fh is not None:
+            self._fh = wrap(self._fh)
 
     def _safe_write(self, lines: list[str], force_flush: bool = False) -> bool:
         """Write + maybe flush, retry once, quarantine via the breaker.
@@ -227,12 +247,19 @@ class AlertWriter:
         idx = np.nonzero(alerts)[0]
         self.count += idx.size  # crossings scored, sink/suppression aside
         suppressed_this = 0
+        attr = None
+        if self._attributor is not None:
+            # history advances on every batch; the per-alert decode only
+            # when a sink will carry it
+            attr = self._attributor.update_and_attribute(
+                stream_ids, values, idx if self._fh is not None else idx[:0])
         if self._fh is not None and idx.size:
             ts = np.broadcast_to(np.asarray(ts), alerts.shape)
             values = np.asarray(values)
             with_id = group is not None and tick is not None
             lines = []
             folds = []
+            lat_ts = [] if self._latency is not None else None
             for g in idx:
                 aid = f"{group}:{stream_ids[g]}:{int(tick)}" if with_id else None
                 if aid is not None and self._suppress and aid in self._suppress:
@@ -243,17 +270,26 @@ class AlertWriter:
                     suppressed_this += 1
                     self._obs_suppressed.inc()
                     continue
+                tf = attr.get(int(g), []) if attr is not None else None
                 if self._correlator is not None:
-                    folds.append((aid, stream_ids[g], int(ts[g])))
+                    folds.append((aid, stream_ids[g], int(ts[g]), tf))
+                if lat_ts is not None:
+                    lat_ts.append(int(ts[g]))
                 lines.append(format_alert_line(
                     aid, stream_ids[g], int(ts[g]), values[g],
-                    float(raw[g]), float(log_likelihood[g])))
+                    float(raw[g]), float(log_likelihood[g]), top_fields=tf))
             off0 = self._offset
             # a dropped batch must not seed windows with ids that exist
             # nowhere on the stream: the resume re-fold reads the disk
             if self._safe_write(lines):
-                for aid, sid, tsi in folds:
-                    self._correlator.observe_alert(aid, sid, tsi, sink_offset=off0)
+                for aid, sid, tsi, tf in folds:
+                    self._correlator.observe_alert(aid, sid, tsi, top_fields=tf,
+                                                   sink_offset=off0)
+                if lat_ts:
+                    # e2e detect latency at the delivery moment: wall clock
+                    # minus each alert's source timestamp
+                    self._latency.observe_detect(
+                        time.time() - np.asarray(lat_ts, np.float64))
         emitted = int(idx.size) - suppressed_this
         if emitted:
             self._obs_alerts.inc(emitted)

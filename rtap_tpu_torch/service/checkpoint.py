@@ -85,7 +85,7 @@ def save_group(grp: StreamGroup, path: str | Path,
         "n_live": grp.n_live,
         "sharded": False,
         "config": grp.cfg.to_dict(),
-        "alert_epoch": 0,
+        "alert_epoch": int(grp.alert_epoch),
     }
     if alerts_offset is not None:
         meta["alerts_offset"] = int(alerts_offset)
@@ -193,6 +193,8 @@ def load_group(path: str | Path, device=None) -> StreamGroup:
         int(meta["alerts_offset"]) if "alerts_offset" in meta else None)
     grp.resume_journal_tick = (
         int(meta["journal_tick"]) if "journal_tick" in meta else None)
+    # the alert-id epoch a quarantine restore bumped (a rewound tick counter)
+    grp.alert_epoch = int(meta.get("alert_epoch", 0))
     get_registry().counter(
         "rtap_obs_checkpoint_loads_total",
         "group checkpoints restored (service/replay resume)").inc()

@@ -96,6 +96,10 @@ class StreamGroup:
         self._alert_run = np.zeros(self.G, np.int64)
         self.likelihood = BatchAnomalyLikelihood(cfg.likelihood, self.G)
         self.ticks = 0
+        # alert-id timeline epoch: 0 on a group's original timeline, bumped
+        # when a quarantine restore rewinds self.ticks so re-used tick
+        # indices never collide with delivered alert ids (checkpointed)
+        self.alert_epoch = 0
         self._seq = 0
         self._collected = 0
         self.state = replicate_state_device(init_state(cfg, seed, self.predict), self.G,
@@ -268,6 +272,13 @@ class StreamGroup:
     def overflow_total(self) -> int:
         """Sum of the per-stream kernel capacity-overflow counters."""
         return int(self.state["tm_overflow"].sum())
+
+
+def alert_gid(gi: int, grp) -> int | str:
+    """The alert_id group field: the bare group index on a group's original
+    timeline, ``<gi>.e<epoch>`` after a quarantine restore has rewound its
+    tick counter."""
+    return gi if not grp.alert_epoch else f"{gi}.e{grp.alert_epoch}"
 
 
 def _pinned_copy(x):

@@ -1,16 +1,19 @@
 """Replay equal-length streams through stream groups at full speed.
 
-Port of the JAX package's ``service/loop.py::replay_streams`` (without its
-trace option): each chunk of `chunk_ticks` ticks is one dispatch per
-group, with a depth-2 pipeline (the device steps chunk t+1 while the host
-post-processes chunk t). Alerts go to a JSONL sink; with a checkpoint dir
+Port of the JAX package's ``service/loop.py::replay_streams``: each chunk
+of `chunk_ticks` ticks is one dispatch per group, with a depth-2 pipeline
+(the device steps chunk t+1 while the host post-processes chunk t). Alerts
+go to a JSONL sink; with a checkpoint dir
 each group saves every `checkpoint_every` collected chunks and a later call
 resumes each group from its own recorded tick, suppressing the alert ids
-the earlier run already delivered.
+the earlier run already delivered. With a ``trace`` recorder every chunk's
+dispatch and collect become host spans (``replay_dispatch``,
+``replay_collect``) on the group's track, keyed by the chunk's first tick.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -26,7 +29,7 @@ from rtap_tpu_torch.service.checkpoint import (
     save_group,
     validate_resume,
 )
-from rtap_tpu_torch.service.registry import StreamGroupRegistry
+from rtap_tpu_torch.service.registry import StreamGroupRegistry, alert_gid
 from rtap_tpu_torch.service.shardpath import group_checkpoint_path
 
 
@@ -54,6 +57,7 @@ def replay_streams(
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
     debounce: int = 1,
+    trace=None,
 ) -> ReplayResult:
     """Replay equal-length streams through grouped models. All streams share
     a clock (stream 0's timestamps are the result's); groups hold
@@ -130,7 +134,11 @@ def replay_streams(
 
         def collect(span, handle):
             t0, t1 = span
+            tc0 = time.perf_counter() if trace is not None else 0.0
             r, ll, al = grp.collect_chunk(handle)
+            if trace is not None:
+                trace.add_span("replay_collect", t0, tc0, time.perf_counter() - tc0,
+                               group=gi)
             raw[t0:t1, lo:lo + live] = r[:, :live]
             loglik[t0:t1, lo:lo + live] = ll[:, :live]
             alerts[t0:t1, lo:lo + live] = al[:, :live]
@@ -139,15 +147,22 @@ def replay_streams(
             counter.add((t1 - t0) * live)
             for i in range(t0, t1):
                 # alert_id group:stream:tick — the replay tick IS the
-                # group's tick counter
+                # group's tick counter (epoch-suffixed when the resumed
+                # checkpoint carries a quarantine restore's rewound timeline)
                 writer.emit_batch(sids, gt[i, :live], gv[i, :live], r[i - t0, :live],
-                                  ll[i - t0, :live], al[i - t0, :live], group=gi, tick=i)
+                                  ll[i - t0, :live], al[i - t0, :live],
+                                  group=alert_gid(gi, grp), tick=i)
 
         pending: deque = deque()
         chunks_done = 0
         for t0 in range(grp.ticks, T, chunk_ticks):
             t1 = min(t0 + chunk_ticks, T)
+            td0 = time.perf_counter() if trace is not None else 0.0
             pending.append(((t0, t1), grp.dispatch_chunk(gv[t0:t1], gt[t0:t1], learn=learn)))
+            if trace is not None:
+                # enqueue time on cuda: the span never waits for the device
+                trace.add_span("replay_dispatch", t0, td0, time.perf_counter() - td0,
+                               group=gi)
             if len(pending) >= 2:
                 collect(*pending.popleft())
                 chunks_done += 1

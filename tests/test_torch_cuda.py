@@ -368,3 +368,127 @@ def test_eval_entry_points_on_card_match_cpu(cuda, entry):
         for k in ("elapsed_s", "metrics_per_sec"):
             r.get("throughput", {}).pop(k, None)
     assert a == b
+
+
+def _chaos_registry(dev, cfg, ids, group_size):
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+
+    reg = StreamGroupRegistry(cfg, group_size=group_size, device=dev, threshold=-1e9,
+                              debounce=1)
+    for sid in ids:
+        reg.add_stream(sid)
+    reg.finalize()
+    return reg
+
+
+def test_restore_on_card_frees_the_old_group_and_matches_cpu(cuda, tmp_path):
+    """A quarantine restore on the card: the restored group lands on the
+    card, the old group's device state is released (allocated memory after
+    the run is the live groups' state and no more), and the run equals the
+    same run on the CPU — alert bytes and state leaves."""
+    import gc
+
+    from rtap_tpu_torch.config import cluster_preset
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.resilience import ChaosEngine, ChaosSpec, Fault
+    from rtap_tpu_torch.service.loop import live_loop
+
+    cfg = cluster_preset()
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(512)]
+
+    def source(k):
+        rng = np.random.Generator(np.random.Philox(key=(9, k)))
+        return (30 + 5 * rng.random(len(ids))).astype(np.float32), 1_700_000_000 + k
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        reg = _chaos_registry(dev, cfg, ids, 256)
+        spec = ChaosSpec(faults=[Fault(kind="collect_exception", tick=6, group=1)])
+        stats = live_loop(source, reg, n_ticks=16, cadence_s=0.0, pipeline_depth=2,
+                          alert_path=str(tmp_path / f"{dev}.jsonl"),
+                          checkpoint_dir=str(tmp_path / f"ck-{dev}"), checkpoint_every=4,
+                          quarantine_restore_after=3, chaos=ChaosEngine(spec))
+        assert [e["event"] for e in stats["quarantine_log"]] == ["group_quarantined",
+                                                                 "group_restored"]
+        assert reg.groups[1].alert_epoch == 1 and reg.groups[1].device.type == dev
+        if dev == "cuda":
+            gc.collect()
+            torch.cuda.synchronize()
+            live = sum(t.numel() * t.element_size() for g in reg.groups
+                       for t in g.state.values())
+            held = torch.cuda.memory_allocated() - base
+            # one group of 256 streams is ~77 MB: a lingering old group would
+            # show as a whole group's worth above the live state
+            assert held < live + live // 4, (held, live)
+            assert stats["kernel_launches"]["tm_learn"] == stats["learned_group_ticks"]
+        out[dev] = (stats, [state_to_numpy(g.state) for g in reg.groups],
+                    open(tmp_path / f"{dev}.jsonl").read().splitlines())
+        del reg
+    (cs, cst, clines), (ps, pst, plines) = out["cuda"], out["cpu"]
+    alerts = lambda lines: [ln for ln in lines if not ln.startswith('{"event"')]  # noqa: E731
+    assert alerts(clines) == alerts(plines) and len(alerts(clines)) > 0
+    assert cs["quarantine_log"] == ps["quarantine_log"]
+    assert cs["scored_by_group"] == ps["scored_by_group"]
+    for a, b in zip(cst, pst):
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), k
+
+
+class _Watched:
+    """A group proxy that records every dispatched handle and wraps its
+    completion event, so the test sees which handles were waited on."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.handles = []
+        self.collected = []
+
+    def dispatch_chunk(self, *a, **kw):
+        h = self._inner.dispatch_chunk(*a, **kw)
+        waited = []
+        ev = h["done"]
+
+        class _Event:
+            def synchronize(self):
+                waited.append(True)
+                ev.synchronize()
+
+        h["done"] = _Event()
+        self.handles.append((h["seq"], waited))
+        return h
+
+    def collect_chunk(self, h):
+        self.collected.append(h["seq"])
+        return self._inner.collect_chunk(h)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def test_quarantined_groups_in_flight_handle_is_dropped_without_a_wait(cuda, tmp_path):
+    """Pipeline depth 2 on the card: a collect fault quarantines the group
+    while its next chunk is in flight; that handle is never collected and
+    its event never waited on, and the other group keeps every tick."""
+    from rtap_tpu_torch.config import scaled_cluster_preset
+    from rtap_tpu_torch.resilience import ChaosEngine, ChaosSpec, Fault
+    from rtap_tpu_torch.service.loop import live_loop
+
+    ids = [f"s{i}" for i in range(8)]
+    reg = _chaos_registry("cuda", scaled_cluster_preset(64), ids, 4)
+    watched = _Watched(reg.groups[1])
+    reg.groups[1] = watched
+    stats = live_loop(lambda k: (np.full(8, 30.0 + k % 5, np.float32), 1_700_000_000 + k),
+                      reg, n_ticks=10, cadence_s=0.0, pipeline_depth=2,
+                      alert_path=str(tmp_path / "a.jsonl"),
+                      chaos=ChaosEngine(ChaosSpec(faults=[
+                          Fault(kind="collect_exception", tick=4, group=1)])))
+    assert stats["quarantine_log"][0]["phase"] == "collect"
+    dropped = [(seq, waited) for seq, waited in watched.handles
+               if seq not in watched.collected]
+    # the chunk dispatched at tick 4 was in flight when tick 3's collect
+    # raised at tick 4: never collected, never waited on
+    assert dropped and all(not waited for _, waited in dropped)
+    assert stats["scored_by_group"][0] == 4 * 10

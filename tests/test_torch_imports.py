@@ -45,7 +45,13 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/nab/runner.py", "rtap_tpu_torch/eval/workload_eval.py",
             "rtap_tpu_torch/eval/node_eval.py", "rtap_tpu_torch/eval/heldout_eval.py",
             "rtap_tpu_torch/eval/report.py", "rtap_tpu_torch/ingest/templates.py",
-            "rtap_tpu_torch/ingest/__init__.py", "rtap_tpu_torch/data/synthetic.py"} <= names
+            "rtap_tpu_torch/ingest/__init__.py", "rtap_tpu_torch/data/synthetic.py",
+            "rtap_tpu_torch/resilience/degrade.py", "rtap_tpu_torch/resilience/chaos.py",
+            "rtap_tpu_torch/resilience/supervisor.py", "rtap_tpu_torch/chaos_soak.py",
+            "rtap_tpu_torch/obs/trace.py", "rtap_tpu_torch/obs/flight.py",
+            "rtap_tpu_torch/obs/latency.py", "rtap_tpu_torch/obs/slo.py",
+            "rtap_tpu_torch/obs/expo.py", "rtap_tpu_torch/obs/selfbench.py",
+            "rtap_tpu_torch/service/attribution.py"} <= names
     assert "rtap_tpu_torch/eval/lead_time.py" not in names  # folded into eval/fault_eval.py
 
 
