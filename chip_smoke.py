@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay, serve, resilience, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve, ingest, resilience, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T]
 
@@ -34,14 +34,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    cluster values over TCP (``send_jsonl``) each time the child journals a
    tick, so every tick after the first polls one whole fed tick. The child
    must exit 0 with every tick scored for every stream, no value missing
-   past tick 0, every record sent parsed, no parse errors or unknown ids, no
+   past tick 0, every record sent parsed by the native C parser
+   (``native_active``), no parse errors or unknown ids, no
    capacity overflow, both checkpoint rounds saved, its telemetry registry
    agreeing with its stats, and one kernel launch per group per tick (the
    child's own counts, from 0). Only tick 0 and the two save ticks (19 and
    39) may miss the 1 s deadline: the missed_tick events are read from the
    child's alert stream and each is gated, its phase split reported. Tick
-   latency, per-phase ms, seconds per group save, parse rate and peak
-   device memory are reported, not gated.
+   latency, per-phase ms, seconds per group save, the parse rate alone
+   (native and Python) and peak device memory are reported, not gated,
+   beside the figures of the Python parser's run.
 7. kill -9 drill: this script's hidden ``--child`` mode runs the chaos
    soak's journaled child (2,048 streams in 2 groups, 96 ticks at cadence 0,
    checkpoints every 16 ticks, journal on, a seeded source keyed by the
@@ -96,8 +98,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    state, saved by the child, holds the kernel to its plain version after
    4,032 learning ticks. Then card == CPU on the first NAB_CPU_ROWS rows of
    one file (raw equal, loglik within 1e-12, scores equal): past the
-   likelihood probation and through a labelled window, what the CPU runs in
-   about a minute at this width.
+   likelihood probation, what the CPU runs in about 40 s at this width.
 12. ``AnomalyDetector`` on the card over golden_config1's stream: raw equal
    to tests/golden/golden_config1.npz, loglik within 1e-12; saved at row
    200, loaded and continued: the same rows.
@@ -115,7 +116,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    card: (a) tests/integration/test_fault_eval.py's fixture shape, 40 x
    1,000, window, streaming and streaming with learn-every 2, each held to
    that file's floors and to one launch per learning tick; (b) 12 streams x
-   1,000 on the card and the CPU, reports equal but for wall-clock
+   850 on the card and the CPU, reports equal but for wall-clock
    entries; (c) the committed artifacts' shape, 120 x 1,500, streaming and
    window: the per-kind and overall event counts equal
    reports/fault_eval.json / _window.json's (quality printed beside them);
@@ -158,6 +159,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    each and each restore's seconds are reported.
 20. the obs cost: every measure of ``obs/selfbench.GATE_MEASURES`` in this
    process at most 1% of the 1 s tick budget, microseconds reported.
+21. binary ingest, each part with its seconds: (a) ``serve --ingest-port
+   0`` at phase 6's shape without the checkpoint dir, fed phase 6's ticks
+   as one RB1 DATA frame per tick over a persistent BinaryFeedConnection
+   (slot codes from its hello MAP) in step with the child's journal: every
+   row sent parsed, no garbage, parse errors, unknown ids or dropped rows,
+   ``native_active``, 8 x 40 launches, only tick 0 missed, and the
+   journal's 40 FRAME records holding exactly the frames fed; tick latency,
+   per-phase ms, journal bytes and append ms per tick and peak memory
+   reported. (b) the drill's shape through live_loop on the card over
+   TcpJsonlSource (native), BinaryBatchSource's socket and its shm ring, in
+   lockstep: alert lines byte-identical, final leaves bit-equal, launches
+   the learned group ticks. (c) ``serve --ingest-port 0 --journal-dir
+   --checkpoint-dir`` at the drill's shape, once uninterrupted and once
+   SIGKILLed at journal tick 40 and restarted over the same directories:
+   FRAME rows replayed with none skipped, every alert id once, alert lines
+   and final leaves equal to the uninterrupted run's. (d) ``python -m
+   rtap_tpu_torch.ingest_bench`` at the JAX package's defaults (1,000,000
+   records, 4,096 streams, 8,192 rows per frame): each transport's
+   records/s, the host's cores and machine, and the JAX package's gates
+   (binary >= 1M rows/s and >= 5x the native JSONL TCP path), which must
+   hold.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -196,10 +218,12 @@ NAB_ROWS = 4032  # learning ticks of the batched corpus run (the longest file)
 # the JAX package's quality floors for this corpus
 # (tests/integration/test_nab_run.py::test_committed_corpus_artifact_floors)
 NAB_FLOORS = {"standard": 6.0, "reward_low_FN": 15.0, "reward_low_FP": 2.0}
-# card == CPU on a prefix of one file: past the 388-row likelihood probation
-# and through the file's first labelled window (rows 1,117-1,185), about a
-# minute of the CPU's plain path at this width
-NAB_CPU_SUBSET, NAB_CPU_ROWS = "realAWSCloudwatch/ec2_cpu_utilization_5f5533", 1200
+# card == CPU on a prefix of one file: 212 rows past the 388-row likelihood
+# probation, ~40 s of the CPU's plain path at this width (cut from 1,200
+# rows to keep the whole smoke near 900 s; the corpus's first labelled
+# window starts at row 1,117, so the prefix's scores are 0.0 on both sides
+# and raw and loglik carry the comparison)
+NAB_CPU_SUBSET, NAB_CPU_ROWS = "realAWSCloudwatch/ec2_cpu_utilization_5f5533", 600
 GOLDEN_ROWS, GOLDEN_SAVE_AT = 400, 200  # phase 12
 CLS_STREAMS, CLS_TICKS = 64, 64  # phase 13
 # phase 14: (preset, streams, group size, ticks)
@@ -209,7 +233,10 @@ EVAL_1K_STREAMS, NODE_STREAMS = 1000, 12  # phase 3's eval and node rows
 # phase 15: (streams, ticks) of tests/integration/test_fault_eval.py's
 # fixture, of reports/fault_eval*.json, and of BASELINE config 3
 EVAL_FIXTURE, EVAL_ARTIFACT, EVAL_1K = (40, 1000), (120, 1500), (EVAL_1K_STREAMS, 1500)
-EVAL_CPU_STREAMS = 12
+# phase 15(b): card == CPU, 12 streams x 850 ticks, just past the eval's
+# probation bound (~834; cut from the fixture's 1,000 to keep the smoke
+# near 900 s)
+EVAL_CPU_STREAMS, EVAL_CPU_LENGTH = 12, 850
 # tests/integration/test_fault_eval.py's floors
 WINDOW_FLOORS = {"at_best": {"f1": 0.60, "recall": 0.80, "precision": 0.50},
                  "at_default": {"f1": 0.55, "recall": 0.70}}
@@ -236,6 +263,18 @@ REPORT_TICKS = 900  # phase 18: the report's replay, one group
 # NVIDIA H100 80GB HBM3, 700.00 W) is reported beside
 OBS_SCRAPE_TICK = 20
 PHASE8_WITHOUT_OBS_MS = (349.435, 826.919)
+# phase 6 with the Python JSONL parser (run 1 of the previous slice's smoke,
+# PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), reported beside the native run
+PHASE6_PYTHON_PARSE = {"latency_p50_ms": 61.031, "latency_p99_ms": 9927.466,
+                       "source_ms_per_tick": 0.12, "parse_records_per_s_alone": 170354.93}
+# phase 21: binary ingest. (b) and (c) at the drill's shape; (c) kills its
+# child once the journal reaches BINARY_KILL_AT, off the 16-tick save grid,
+# and paces its lives at BINARY_DRILL_CADENCE s so the journal-gated feeder
+# (~5 ms behind each append) is always ahead of the child's next poll; (d)
+# runs the ingest bench at the JAX package's defaults (1,000,000 records,
+# 4,096 streams, 8,192 rows per frame)
+BINARY_KILL_AT = 40
+BINARY_DRILL_CADENCE = 0.1
 OBS_ROUTES = ("/metrics", "/healthz", "/latency", "/health", "/predict", "/incidents",
               "/trace?last=5")
 # phase 8 must expose at least these registry families while it runs
@@ -495,16 +534,19 @@ def phase_card_vs_cpu(seed: int, G: int = 8, T: int = 64) -> None:
          state_leaves=len(sc), state_equal=True)
 
 
-def parse_capacity(records: list[dict], ids: list[str]) -> float:
+def parse_capacity(records: list[dict], ids: list[str], native: bool | None = None) -> float:
     """Records per second one TcpJsonlSource parses on this host with
-    nothing else running: one tick's records, encoded ahead, pushed over
-    loopback; the clock runs from the first byte sent to the last record
-    counted (the serve child parses on its listener threads, beside the
-    loop)."""
+    nothing else running (`native`: None takes the C parser, False forces
+    Python): one tick's records, encoded ahead, pushed over loopback; the
+    clock runs from the first byte sent to the last record counted (the
+    serve child parses on its listener threads, beside the loop)."""
     from rtap_tpu_torch.service.sources import TcpJsonlSource
 
     payload = "".join(json.dumps(r) + "\n" for r in records).encode()
-    with TcpJsonlSource(ids) as src:
+    with TcpJsonlSource(ids, native=native) as src:
+        if src.native_active != (native is not False):
+            raise AssertionError(f"TcpJsonlSource(native={native}).native_active is "
+                                 f"{src.native_active}")
         t0 = time.perf_counter()
         with socket.create_connection(src.address) as conn:
             conn.sendall(payload)
@@ -528,26 +570,39 @@ def _tree_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list[str],
+def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
                  group: int = SERVE_GROUP, n_ticks: int = SERVE_TICKS,
-                 scrape=None) -> tuple:
+                 scrape=None, transport: str = "jsonl", cadence: float = 1.0,
+                 start: int = 0, kill_at: int | None = None,
+                 frames_out: list | None = None) -> tuple:
     """`python -m rtap_tpu_torch serve` on cuda over `ids` (groups of
-    `group`, depth 2, 1 s cadence, `n_ticks` ticks, alerts and the journal
-    in `work`, plus `extra` flags), fed over TCP by this process: tick
-    t + 1's records when the child journals tick t -> (stats, records sent,
-    stderr). `scrape` = (tick, fn, out dict): once the child journals that
-    tick, ``out.update(fn(obs port))`` (the child runs with --obs-port 0)."""
+    `group`, depth 2, `cadence` s, `n_ticks` ticks, alerts and the journal
+    in `work`, plus `extra` flags), fed by this process: ``ticks[t]`` (what
+    tick t + 1 polls) once the child journals tick t -> (stats, records
+    sent, stderr). `transport` "jsonl" sends record lists over TCP
+    (``send_jsonl``); "binary" runs the child with ``--ingest-port 0`` and
+    sends each ``ticks[t] = (values [N] f32, ts)`` as one RB1 DATA frame
+    over one persistent ``BinaryFeedConnection``, with the slot codes of
+    its hello MAP, appending the frames to `frames_out`. `start` is the
+    first index fed (a resumed life over the same journal). `kill_at`:
+    SIGKILL the child once its journal reaches that tick (stats None).
+    `scrape` = (tick, fn, out dict): once the child journals that tick,
+    ``out.update(fn(obs port))`` (the child runs with --obs-port 0)."""
+    from rtap_tpu_torch.ingest import BinaryFeedConnection
+    from rtap_tpu_torch.ingest.protocol import data_frame
     from rtap_tpu_torch.resilience.journal import last_journal_tick
     from rtap_tpu_torch.service.sources import send_jsonl
 
     with open(os.path.join(work, "ids.txt"), "w") as f:
         f.write("\n".join(ids) + "\n")
     journal_dir = os.path.join(work, "journal")
+    binary = transport == "binary"
     cmd = [sys.executable, "-m", "rtap_tpu_torch", "serve", "--streams",
            "@" + os.path.join(work, "ids.txt"), "--device", "cuda",
-           "--group-size", str(group), "--pipeline-depth", "2", "--cadence", "1.0",
-           "--ticks", str(n_ticks), "--port", "0",
+           "--group-size", str(group), "--pipeline-depth", "2", "--cadence", str(cadence),
+           "--ticks", str(n_ticks), *(["--ingest-port", "0"] if binary else ["--port", "0"]),
            "--alerts", os.path.join(work, "alerts.jsonl"), "--journal-dir", journal_dir, *extra]
+    listen = "listening for binary batch frames on" if binary else "listening for JSONL records on"
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     err_lines: list[str] = []
@@ -557,13 +612,14 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
     def read_stderr():
         for line in proc.stderr:
             err_lines.append(line)
-            if "listening for JSONL records on" in line:
+            if listen in line:
                 port.append(int(line.rsplit(":", 1)[1]))
             elif "obs telemetry on http://" in line:
                 obs_port.append(int(line.rsplit(":", 1)[1].split("/")[0]))
 
     reader = threading.Thread(target=read_stderr, daemon=True)
     reader.start()
+    conn = None
     try:
         deadline = time.time() + 300
         while not port and proc.poll() is None and time.time() < deadline:
@@ -571,8 +627,19 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
         if not port:
             raise AssertionError(f"serve never listened (rc {proc.poll()}):\n"
                                  + "".join(err_lines)[-3000:])
+        if binary:
+            conn = BinaryFeedConnection(("127.0.0.1", port[0]), timeout_s=60.0)
+            codes = np.array([conn.code_of[sid] for sid in ids], np.uint32)
+            if start:
+                # a resumed child re-pushes its slot map once its checkpoints
+                # are restored (the epoch moves to 2): frames stamped before
+                # that would be refused as stale
+                deadline = time.time() + 300
+                while conn.epoch < 2 and proc.poll() is None and time.time() < deadline:
+                    conn.poll_map()
+                    time.sleep(0.005)
         sent = 0
-        for t, records in enumerate(ticks):
+        for t in range(start, len(ticks)):
             # the child journals tick t's polled row before scoring it: from
             # then on, what arrives is what tick t + 1 polls
             deadline = time.time() + 300
@@ -581,7 +648,20 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
                 time.sleep(0.002)
             if proc.poll() is not None or last_journal_tick(journal_dir) < t:
                 break
-            sent += send_jsonl(("127.0.0.1", port[0]), records)
+            if kill_at is not None and t >= kill_at:
+                proc.send_signal(signal.SIGKILL)  # no cleanup, no flush
+                proc.wait()
+                return None, sent, "".join(err_lines)
+            if binary:
+                conn.poll_map()  # a producer adopts pushed maps before each send
+                values, ts = ticks[t]
+                frame = data_frame(codes, values, ts, epoch=conn.epoch)
+                conn.send_frame(frame)
+                if frames_out is not None:
+                    frames_out.append(frame)
+                sent += len(ids)
+            else:
+                sent += send_jsonl(("127.0.0.1", port[0]), ticks[t])
             if scrape is not None and t == scrape[0]:
                 scrape[2].update(scrape[1](obs_port[0]))
         out, _ = proc.communicate(timeout=600)
@@ -589,6 +669,8 @@ def _serve_child(ids: list[str], ticks: list[list[dict]], work: str, extra: list
             raise AssertionError(f"serve exited {proc.returncode}:\n"
                                  + "".join(err_lines)[-3000:])
     finally:
+        if conn is not None:
+            conn.close()
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -632,7 +714,8 @@ def phase_serve(seed: int, card: str) -> dict:
     its stats line."""
     work = tempfile.mkdtemp(prefix="rtap-serve-")
     ids, ticks, gen_s = _serve_feed(seed)
-    parse_rate = parse_capacity(ticks[0], ids)
+    parse_rate = {"python": parse_capacity(ticks[0], ids, native=False),
+                  "native": parse_capacity(ticks[0], ids)}
     ck_dir = os.path.join(work, "ck")
     try:
         stats, sent, _ = _serve_child(ids, ticks, work, [
@@ -655,6 +738,8 @@ def phase_serve(seed: int, card: str) -> dict:
         "records_parsed": stats["records_parsed"] == sent,
         "parse_errors": stats["parse_errors"] == 0,
         "unknown_ids": stats["unknown_ids"] == 0,
+        # the listener parsed with the native C parser, not Python
+        "native_active": stats["native_active"] is True,
         "tm_overflow_total": stats["tm_overflow_total"] == 0,
         # the round at SERVE_CHECKPOINT_EVERY and the final save on exit
         "checkpoints_saved": stats.get("checkpoints_saved") == 2,
@@ -690,7 +775,9 @@ def phase_serve(seed: int, card: str) -> dict:
                group_save_s_mean=stats["group_save_s_mean"], checkpoint_bytes=ck_bytes,
                journal_append_ms_per_tick=stats["journal"]["append_ms_per_tick"],
                records_sent=sent, records_parsed=stats["records_parsed"],
+               native_active=stats["native_active"],
                parse_records_per_s_alone=parse_rate,
+               before_native_parse=PHASE6_PYTHON_PARSE,
                records_parsed_per_s=stats["records_parsed"] / stats["elapsed_s"],
                elapsed_s=stats["elapsed_s"],
                hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"],
@@ -1713,7 +1800,8 @@ def phase_eval(card: str, work: str) -> dict:
     if failed:
         raise AssertionError(f"eval fixture failed: {failed}")
 
-    # (b) card == CPU at 12 streams x 1,000, streaming
+    # (b) card == CPU at 12 streams x 850, streaming
+    length = EVAL_CPU_LENGTH
     reps = {dev: run(f"cpu_check_{dev}", EVAL_CPU_STREAMS, length, device=dev)
             for dev in ("cuda", "cpu")}
     if _strip_wall_clock(reps["cuda"][0]) != _strip_wall_clock(reps["cpu"][0]):
@@ -2065,6 +2153,413 @@ def phase_obs_cost(card: str) -> dict:
     return row
 
 
+def _binary_feed(ticks: list[list[dict]]) -> list[tuple]:
+    """Record lists -> one (values [N] f32, ts) per fed tick (every stream
+    of a synthetic tick shares its timestamp)."""
+    feed = []
+    for recs in ticks:
+        if len({r["ts"] for r in recs}) != 1:
+            raise AssertionError("a fed tick spans several timestamps")
+        feed.append((np.array([r["value"] for r in recs], np.float32), recs[0]["ts"]))
+    return feed
+
+
+def _journal_records(journal_dir: str) -> list:
+    """(tick, ts, TICK row or JournaledFrames) of every record in a journal."""
+    from rtap_tpu_torch.resilience.journal import TickJournal
+
+    j = TickJournal(journal_dir)
+    try:
+        return list(j.recovered_ticks)
+    finally:
+        j.close()
+
+
+def phase_binary_serve(seed: int, card: str, serve_row: dict) -> dict:
+    """21(a): `serve --ingest-port 0` at phase 6's shape (32,768 streams in
+    8 groups of 4,096, depth 2, 1 s cadence, 40 learning ticks, the journal,
+    no checkpoint dir) fed phase 6's seeded ticks as one RB1 DATA frame per
+    tick over a persistent BinaryFeedConnection, in step with the child's
+    journal."""
+    from rtap_tpu_torch.resilience.journal import JournaledFrames
+
+    work = tempfile.mkdtemp(prefix="rtap-binserve-")
+    ids, ticks, gen_s = _serve_feed(seed)
+    feed = _binary_feed(ticks)
+    frames: list[bytes] = []
+    try:
+        stats, sent, _ = _serve_child(ids, feed, work, [], transport="binary",
+                                      frames_out=frames)
+        missed = _missed_ticks(os.path.join(work, "alerts.jsonl"))
+        records = _journal_records(os.path.join(work, "journal"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    groups = SERVE_STREAMS // SERVE_GROUP
+    # tick t + 1 polled the frame sent after tick t: its FRAME record holds
+    # exactly that frame; tick 0 polled nothing and journals no frame
+    want = [b""] + frames
+    got = [r[2].blob if isinstance(r[2], JournaledFrames) else None for r in records]
+    tel = _telemetry(stats)
+    checks = {
+        "ticks": stats["ticks"] == SERVE_TICKS,
+        "scored": stats["scored"] == SERVE_TICKS * SERVE_STREAMS,
+        "missing_values": stats["missing_values"] == SERVE_STREAMS,
+        "rows_sent": sent == (SERVE_TICKS - 1) * SERVE_STREAMS,
+        "rows_parsed": stats["records_parsed"] == sent,
+        "frames_applied": stats["frames_applied"] == SERVE_TICKS - 1,
+        "clean": all(stats[k] == 0 for k in (
+            "garbage_bytes", "parse_errors", "unknown_ids", "rows_quota_dropped",
+            "rows_late_dropped", "rows_backpressure_dropped", "rows_stale_epoch")),
+        "native_active": stats["native_active"] is True,
+        "tm_overflow_total": stats["tm_overflow_total"] == 0,
+        "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * SERVE_TICKS,
+        "missed_ticks": all(t == 0 for t, _ in missed)
+                        and len(missed) == stats["missed_deadlines"],
+        "frame_records": [r[0] for r in records] == list(range(SERVE_TICKS)) and got == want,
+        "telemetry": (tel["rtap_obs_ingest_records_total"], tel["rtap_obs_ingest_frames_total"])
+                     == (stats["records_parsed"], stats["frames_applied"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"binary serve checks failed {bad} (rows sent {sent}, missed "
+                             f"{missed}, journal ticks {[r[0] for r in records][:50]}): "
+                             f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
+    row = dict(preset="cluster_preset", transport="RB1 over --ingest-port",
+               streams=SERVE_STREAMS, group_size=SERVE_GROUP, groups=groups,
+               ticks=stats["ticks"], cadence_s=stats["cadence_s"],
+               pipeline_depth=stats["pipeline_depth"], scored=stats["scored"],
+               missing_values=stats["missing_values"], rows_sent=sent,
+               rows_parsed=stats["records_parsed"], frames_applied=stats["frames_applied"],
+               frame_bytes=len(frames[0]), native_active=stats["native_active"],
+               latency_p50_ms=stats["latency_p50_ms"], latency_p90_ms=stats["latency_p90_ms"],
+               latency_p99_ms=stats["latency_p99_ms"], latency_max_ms=stats["latency_max_ms"],
+               missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
+               phase_ms_per_tick=stats["phase_ms_per_tick"],
+               phase6_jsonl=dict(latency_p50_ms=serve_row["latency_p50_ms"],
+                                 latency_p99_ms=serve_row["latency_p99_ms"],
+                                 phase_ms_per_tick=serve_row["phase_ms_per_tick"]),
+               journal_frame_records=len(records),
+               journal_bytes=stats["journal"]["appended_bytes"],
+               journal_bytes_per_tick=stats["journal"]["appended_bytes"] / stats["ticks"],
+               journal_append_ms_per_tick=stats["journal"]["append_ms_per_tick"],
+               phase6_journal_append_ms_per_tick=serve_row["journal_append_ms_per_tick"],
+               elapsed_s=stats["elapsed_s"],
+               hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"],
+               kernel_launches=stats["kernel_launches"]["tm_learn"], feed_gen_s=gen_s, card=card)
+    emit("binary_serve", **row)
+    return row
+
+
+def _drill_source(seed: int, n: int, ts0: int = 1_700_000_000):
+    """Phase 9's seeded drill feed: tick k -> (values [n] f32, ts0 + k),
+    one stream spiking each tick."""
+    def source(k):
+        rng = np.random.Generator(np.random.Philox(key=(seed, k)))
+        v = (30 + 5 * rng.random(n)).astype(np.float32)
+        v[k % n] += 30.0
+        return v, ts0 + k
+    return source
+
+
+def _alert_bytes(path: str) -> dict:
+    """Alert lines by alert_id (event lines left out). Tick 0 polls nothing
+    in a serve child, so its lines carry the wall clock's ts: those compare
+    without it, every other line byte for byte."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith('{"event"'):
+                continue
+            rec = json.loads(line)
+            if rec["alert_id"].endswith(":0"):
+                rec.pop("ts")
+                line = json.dumps(rec)
+            out[rec["alert_id"]] = line
+    return out
+
+
+def phase_transports(seed: int, card: str) -> dict:
+    """21(b): the drill's shape (2 groups of 1,024, 96 ticks, cadence 0,
+    threshold 0: every stream alerts every tick) through live_loop on the
+    card three times, in lockstep (push a tick's rows, wait until they are
+    counted, poll): TcpJsonlSource (native parser), BinaryBatchSource over
+    its socket, and BinaryBatchSource(shm=...) fed through a ShmRing
+    attached by name. Alert lines and final leaves must be equal."""
+    import platform
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.config import cluster_preset
+    from rtap_tpu_torch.ingest import BinaryBatchSource, BinaryFeedConnection, ShmRing
+    from rtap_tpu_torch.ingest.protocol import data_frame
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.service.loop import live_loop
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+    from rtap_tpu_torch.service.sources import TcpJsonlSource, send_jsonl
+
+    cfg = cluster_preset()
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
+    feed = _drill_source(seed, DRILL_STREAMS)
+    work = tempfile.mkdtemp(prefix="rtap-transports-")
+    runs = {}
+
+    def lockstep(src, push, counted):
+        def source(k):
+            values, ts = feed(k)
+            want = counted() + push(values, ts)
+            deadline = time.time() + 60
+            while counted() < want and time.time() < deadline:
+                time.sleep(0.0005)
+            if counted() != want:
+                raise AssertionError(f"tick {k}: {counted()} of {want} rows counted")
+            return src(k)
+        return source
+
+    try:
+        for name in ("jsonl", "socket", "shm"):
+            reg = StreamGroupRegistry(cfg, group_size=DRILL_GROUP, device="cuda", threshold=0.0,
+                                      debounce=1)
+            for sid in ids:
+                reg.add_stream(sid)
+            reg.finalize()
+            ring = conn = None
+            if name == "jsonl":
+                src = TcpJsonlSource(reg.dispatch_ids()).start()
+                if not src.native_active:
+                    raise AssertionError("the JSONL source did not load its native parser")
+
+                def push(values, ts, src=src):
+                    return send_jsonl(src.address, [{"id": sid, "value": float(v), "ts": ts}
+                                                    for sid, v in zip(ids, values)])
+                source = lockstep(src, push, lambda src=src: src.records_parsed)
+            elif name == "socket":
+                src = BinaryBatchSource(reg.slot_map()).start()
+                conn = BinaryFeedConnection(src.address, timeout_s=60.0)
+
+                def push(values, ts, conn=conn):
+                    return conn.send_rows(ids, values, ts)
+                source = lockstep(src, push, lambda src=src: src.records_parsed)
+            else:
+                ring_name = f"rtap_smoke_{os.getpid()}"
+                src = BinaryBatchSource(reg.slot_map(), port=None, shm=ring_name)
+                ring = ShmRing.attach(ring_name)
+                codes = src._table.codes  # the registry's order is the ids' order
+
+                def source(k, src=src, ring=ring, codes=codes):
+                    # the poll drains the ring itself: push, then poll
+                    values, ts = feed(k)
+                    if not ring.push(data_frame(codes, values, ts)):
+                        raise AssertionError(f"tick {k}: the shm ring refused a frame")
+                    return src(k)
+            path = os.path.join(work, f"{name}.jsonl")
+            tl.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                stats = live_loop(source, reg, n_ticks=DRILL_TICKS, cadence_s=0.0,
+                                  alert_path=path, pipeline_depth=2)
+                torch.cuda.synchronize()
+            finally:
+                if conn is not None:
+                    conn.close()
+                if ring is not None:
+                    ring.close()
+                src.close()
+            runs[name] = dict(
+                stats=stats, launches=tl.launches, seconds=time.perf_counter() - t0,
+                lines=[ln for ln in open(path) if not ln.startswith('{"event"')],
+                leaves=[{**state_to_numpy(g.state),
+                         **{f"likelihood/{k}": np.asarray(v)
+                            for k, v in g.likelihood.state_dict().items()}}
+                        for g in reg.groups],
+                ingest={k: getattr(src, k, None) for k in (
+                    "records_parsed", "parse_errors", "unknown_ids", "garbage_bytes",
+                    "frames_applied", "native_active")})
+            del reg
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ref = runs["jsonl"]
+    failures = []
+    for name in ("socket", "shm"):
+        r = runs[name]
+        if r["lines"] != ref["lines"]:
+            failures.append(f"{name}: alert lines differ from JSONL's")
+        for gi, (a, b) in enumerate(zip(ref["leaves"], r["leaves"])):
+            bad = [k for k in a if a[k].dtype != b[k].dtype or not np.array_equal(
+                a[k], b[k], equal_nan=a[k].dtype.kind == "f")]
+            if bad or a.keys() != b.keys():
+                failures.append(f"{name}: group {gi} leaves differ {bad[:6]}")
+    for name, r in runs.items():
+        if len(r["lines"]) != DRILL_STREAMS * DRILL_TICKS:
+            failures.append(f"{name}: {len(r['lines'])} alert lines")
+        if r["launches"] != r["stats"]["learned_group_ticks"] or r["launches"] != 2 * DRILL_TICKS:
+            failures.append(f"{name}: launches {r['launches']} vs learned group ticks "
+                            f"{r['stats']['learned_group_ticks']}")
+        # the shm ring is safe on total-store-order hosts only: on aarch64 a
+        # torn read is counted (garbage, bad CRC), reported, not gated
+        torn_ok = name == "shm" and platform.machine() == "aarch64"
+        if r["stats"]["missing_values"] or r["ingest"]["unknown_ids"] or (
+                not torn_ok and (r["ingest"]["parse_errors"] or r["ingest"]["garbage_bytes"])):
+            failures.append(f"{name}: ingest not clean {r['ingest']}, missing "
+                            f"{r['stats']['missing_values']}")
+    if failures:
+        raise AssertionError(f"transports differ: {failures}")
+    row = dict(streams=DRILL_STREAMS, groups=2, ticks=DRILL_TICKS,
+               transports=["jsonl (native parser)", "RB1 socket", "RB1 shm ring"],
+               alert_lines=len(ref["lines"]), leaves_equal=sum(len(x) for x in ref["leaves"]),
+               launches={k: r["launches"] for k, r in runs.items()},
+               seconds={k: r["seconds"] for k, r in runs.items()},
+               phase_ms_per_tick={k: r["stats"]["phase_ms_per_tick"] for k, r in runs.items()},
+               ingest={k: r["ingest"] for k, r in runs.items()},
+               machine=platform.machine(), card=card)
+    emit("transports_equal", **row)
+    return row
+
+
+def phase_binary_kill(seed: int, card: str) -> dict:
+    """21(c): `serve --ingest-port 0 --journal-dir J --checkpoint-dir C` at
+    the drill's shape (2 groups of 1,024, 96 ticks at BINARY_DRILL_CADENCE
+    s, checkpoints every 16, threshold 0), fed the drill's seeded ticks by
+    the journal-gated binary feeder: once uninterrupted as the reference,
+    once SIGKILLed when its journal reaches BINARY_KILL_AT and restarted
+    over the same directories, fed on from the restart's resume base."""
+    from rtap_tpu_torch.resilience.journal import last_journal_tick
+
+    root = tempfile.mkdtemp(prefix="rtap-binkill-")
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
+    # timestamps ahead of the wall clock that tick 0 (fed nothing) takes, so
+    # the loop's monotonic clamp never rewrites a fed tick's ts
+    src = _drill_source(seed, DRILL_STREAMS, ts0=int(time.time()) + 3600)
+    # feed[t] is what tick t + 1 polls; tick 0 polls nothing in every run
+    feed = [src(t + 1) for t in range(DRILL_TICKS - 1)]
+    extra = lambda work: ["--checkpoint-dir", os.path.join(work, "ck"),  # noqa: E731
+                          "--checkpoint-every", str(DRILL_CHECKPOINT_EVERY),
+                          "--threshold=0.0", "--debounce", "1"]
+
+    def life(work, **kw):
+        return _serve_child(ids, feed, work, extra(work), group=DRILL_GROUP,
+                            n_ticks=DRILL_TICKS, transport="binary",
+                            cadence=BINARY_DRILL_CADENCE, **kw)
+
+    t0 = time.perf_counter()
+    try:
+        ref_dir, crash_dir = os.path.join(root, "ref"), os.path.join(root, "crash")
+        os.makedirs(ref_dir)
+        os.makedirs(crash_dir)
+        ref_stats, _, _ = life(ref_dir)
+        ref_s = time.perf_counter() - t0
+        killed, _, _ = life(crash_dir, kill_at=BINARY_KILL_AT)
+        if killed is not None:
+            raise AssertionError("the first life was not killed")
+        base = last_journal_tick(os.path.join(crash_dir, "journal")) + 1
+        t1 = time.perf_counter()
+        last, _, err = life(crash_dir, start=base - 1)
+        resumed_s = time.perf_counter() - t1
+        want, ref_dup, _ = _drill_records(os.path.join(ref_dir, "alerts.jsonl"))
+        got, dup, torn = _drill_records(os.path.join(crash_dir, "alerts.jsonl"))
+        ref_lines = _alert_bytes(os.path.join(ref_dir, "alerts.jsonl"))
+        got_lines = _alert_bytes(os.path.join(crash_dir, "alerts.jsonl"))
+        ref_ck = _drill_checkpoints(os.path.join(ref_dir, "ck"))
+        got_ck = _drill_checkpoints(os.path.join(crash_dir, "ck"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    jr = last["journal"]
+    if not (jr["replayed_ticks"] > 0 and jr["skipped_rows"] == 0):
+        failures.append(f"the restart replayed {jr['replayed_ticks']} ticks, skipped "
+                        f"{jr['skipped_rows']}")
+    if f"resuming at tick {base} " not in err:
+        failures.append(f"the restart did not resume at tick {base}")
+    if last["kernel_launches"]["tm_learn"] != last["learned_group_ticks"]:
+        failures.append(f"resumed launches {last['kernel_launches']} vs learned group ticks "
+                        f"{last['learned_group_ticks']}")
+    if ref_dup or dup or torn:
+        failures.append(f"duplicated alert ids {len(dup)} (reference {len(ref_dup)}), "
+                        f"torn {torn}")
+    if got.keys() != want.keys():
+        failures.append(f"alert ids differ: {len(want.keys() - got.keys())} lost, "
+                        f"{len(got.keys() - want.keys())} extra")
+    if got_lines != ref_lines:
+        failures.append("alert lines differ from the reference's")
+    if ref_stats["missing_values"] != DRILL_STREAMS or last["missing_values"] != 0:
+        failures.append(f"missing values: reference {ref_stats['missing_values']}, resumed "
+                        f"life {last['missing_values']} (the feeder fell behind a poll)")
+    if ref_stats["kernel_launches"]["tm_learn"] != 2 * DRILL_TICKS:
+        failures.append(f"reference launches {ref_stats['kernel_launches']}")
+    leaves = 0
+    if ref_ck.keys() != got_ck.keys():
+        failures.append(f"checkpoint groups differ: {sorted(ref_ck)} vs {sorted(got_ck)}")
+    for name in sorted(ref_ck.keys() & got_ck.keys()):
+        (rt, rtree), (gt, gtree) = ref_ck[name], got_ck[name]
+        if rt != gt or rt != DRILL_TICKS:
+            failures.append(f"{name}: final ticks {gt} vs reference {rt}")
+        rl, gl = dict(_flat(rtree)), dict(_flat(gtree))
+        if rl.keys() != gl.keys():
+            failures.append(f"{name}: state leaves differ")
+            continue
+        for k in rl:
+            leaves += 1
+            a, b = rl[k], gl[k]
+            if a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+                failures.append(f"{name}/{k}: diverges from the reference")
+    if failures:
+        raise AssertionError(f"binary kill drill failed: {failures}")
+    row = dict(streams=DRILL_STREAMS, groups=2, ticks=DRILL_TICKS,
+               cadence_s=BINARY_DRILL_CADENCE, checkpoint_every=DRILL_CHECKPOINT_EVERY,
+               kill_at_journal_tick=BINARY_KILL_AT, resume_base=base,
+               replayed_frame_ticks=jr["replayed_ticks"], skipped_rows=jr["skipped_rows"],
+               replay_seconds=jr["replay_seconds"], alert_ids=len(want), duplicated=0,
+               lost=0, state_leaves_equal=leaves,
+               reference_launches=ref_stats["kernel_launches"]["tm_learn"],
+               resumed_launches=last["kernel_launches"]["tm_learn"],
+               resumed_learned_group_ticks=last["learned_group_ticks"],
+               journal_append_ms_per_tick=ref_stats["journal"]["append_ms_per_tick"],
+               reference_s=ref_s, resumed_life_s=resumed_s,
+               seconds=time.perf_counter() - t0, card=card)
+    emit("binary_kill_drill", **row)
+    return row
+
+
+def phase_ingest_bench(card: str) -> dict:
+    """21(d): `python -m rtap_tpu_torch.ingest_bench` (host work, no device)
+    at the JAX package's defaults; fails when either of the JAX package's
+    gates fails (binary >= 1M rows/s, >= 5x the native JSONL TCP path)."""
+    import platform
+
+    out = subprocess.run([sys.executable, "-m", "rtap_tpu_torch.ingest_bench"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"ingest bench printed nothing (rc {out.returncode}):\n"
+                             f"{out.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    row = dict(res, machine=platform.machine(), card=card)
+    emit("ingest_bench", **row)
+    if out.returncode != 0 or not (res["gate_binary_1m_rows_per_sec"]
+                                   and res["gate_binary_5x_jsonl"]):
+        raise AssertionError(f"ingest gates failed (rc {out.returncode}): binary socket "
+                             f"{res['binary_socket_end_to_end']}, native JSONL socket "
+                             f"{res['native_socket_end_to_end']}")
+    return row
+
+
+def phase_binary_ingest(seed: int, card: str, serve_row: dict) -> dict:
+    """Phase 21: (a)-(d), each with its own seconds."""
+    import platform
+
+    parts, seconds = {}, {}
+    for key, fn in (("a", lambda: phase_binary_serve(seed, card, serve_row)),
+                    ("b", lambda: phase_transports(seed, card)),
+                    ("c", lambda: phase_binary_kill(seed, card)),
+                    ("d", lambda: phase_ingest_bench(card))):
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        seconds[key] = round(time.perf_counter() - t0, 3)
+        torch.cuda.empty_cache()
+    emit("binary_ingest", seconds=seconds, machine=platform.machine(), card=card)
+    return parts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2223,6 +2718,14 @@ def main() -> int:
     # 20. the obs cost gate
     phase_obs_cost(smi)
     mark(20)
+    # 21. binary ingest: serve over RB1 at full width, the three transports
+    # equal, FRAME replay after a kill -9, the host ingest bench
+    b = phase_binary_ingest(args.seed, smi, serve_row)
+    rows["binary_serve"] = b["a"]["kernel_launches"]
+    rows.update({f"transport_{k}": n for k, n in b["b"]["launches"].items()})
+    rows["binary_kill_reference"] = b["c"]["reference_launches"]
+    rows["binary_kill_resumed_life"] = b["c"]["resumed_launches"]
+    mark(21)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,

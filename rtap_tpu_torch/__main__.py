@@ -1,7 +1,9 @@
 """rtap_tpu_torch command line: ``python -m rtap_tpu_torch <command>``.
 
     serve    live scoring loop at a fixed cadence, fed by a TCP JSONL push
-             listener or an HTTP poll endpoint; prints one JSON stats line.
+             listener, an HTTP poll endpoint, or the RB1 binary batch
+             protocol over sockets or a shared-memory ring (--ingest-*);
+             prints one JSON stats line.
     replay   synthetic cluster replay through stream groups at full speed;
              prints one JSON line of stats.
     nab      NAB-style detection quality over a corpus: detect, sweep the
@@ -17,7 +19,9 @@ subcommands where they apply (``--device`` takes the place of
 ``--backend``). ``serve`` takes the JAX package's resilience and
 observability flags (--chaos-spec, --degrade*, --quarantine-restore-after,
 --supervise*, --latency*, --slo*, --trace-*, --postmortem-dir,
---flight-ticks, --obs-port, --obs-snapshot, --alert-attribution); every JAX
+--flight-ticks, --obs-port, --obs-snapshot, --alert-attribution) and its
+binary ingest flags (--ingest-port, --ingest-shm, --ingest-quota,
+--ingest-backfill-horizon); every JAX
 serve flag this package does not port yet exits 2 naming it and the queue
 item that ports it (:data:`UNPORTED_SERVE_FLAGS`), so nothing is silently
 ignored.
@@ -47,9 +51,6 @@ UNPORTED_SERVE_FLAGS = {
                     (True, "replication, leases and the fleet plane; ROADMAP.md queue A, M5")),
     **dict.fromkeys(("--standby", "--control-only"),
                     (False, "replication, leases and the fleet plane; ROADMAP.md queue A, M5")),
-    **dict.fromkeys(("--ingest-port", "--ingest-shm", "--ingest-quota",
-                     "--ingest-backfill-horizon"),
-                    (True, "binary ingest; ROADMAP.md queue A, M4")),
     **dict.fromkeys(("--chunk-stagger", "--stagger-learn", "--aot-warmup"),
                     (False, "the scheduling flags; ROADMAP.md queue A, M7")),
     # an XLA device trace has no meaning here
@@ -159,6 +160,23 @@ def _resilience_obs_usage_error(args: argparse.Namespace) -> str | None:
         return ("--supervise needs --checkpoint-dir (a restarted child must resume "
                 "its fleet, not rescore from scratch); add --journal-dir for "
                 "tick-exact catch-up")
+    return None
+
+
+def _ingest_usage_error(args: argparse.Namespace) -> str | None:
+    """The JAX package's usage errors of the binary ingest flags."""
+    binary = args.ingest_port is not None or bool(args.ingest_shm)
+    if args.http and binary:
+        return ("--http and --ingest-port/--ingest-shm are exclusive "
+                "(one source feeds the loop)")
+    if args.port and binary:
+        return ("--port (JSONL listener) and --ingest-port/--ingest-shm "
+                "are exclusive — the binary source replaces the JSONL one; "
+                "a JSONL producer pointed at --port would get connection "
+                "refused while serve reports healthy")
+    if (args.ingest_quota or args.ingest_backfill_horizon) and not binary:
+        return ("--ingest-quota/--ingest-backfill-horizon are binary-"
+                "ingest admission knobs; add --ingest-port or --ingest-shm")
     return None
 
 
@@ -293,7 +311,7 @@ def _model_side_trackers(args: argparse.Namespace, cfg, ids: list[str], predict_
 
 def _cmd_serve(args: argparse.Namespace) -> int:
     refused = _refused_serve_flag(args) or _model_side_usage_error(args) \
-        or _resilience_obs_usage_error(args)
+        or _resilience_obs_usage_error(args) or _ingest_usage_error(args)
     if refused:
         print(f"serve: {refused}", file=sys.stderr)
         return 2
@@ -449,6 +467,23 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     if args.http:
         source = HttpPollSource(args.http, reg.dispatch_ids(), track_unknown=args.auto_register)
         close = lambda: None  # noqa: E731
+    elif args.ingest_port is not None or args.ingest_shm:
+        # the RB1 binary batch protocol over persistent sockets and/or a
+        # shared-memory ring, addressed by the registry's slot map
+        from rtap_tpu_torch.ingest import BinaryBatchSource
+
+        bsrc = BinaryBatchSource(reg.slot_map(), port=args.ingest_port,
+                                 shm=args.ingest_shm or None, quota_rows=args.ingest_quota,
+                                 backfill_horizon=args.ingest_backfill_horizon,
+                                 track_unknown=args.auto_register).start()
+        if bsrc.address is not None:
+            bhost, bport = bsrc.address
+            print(f"serve: listening for binary batch frames on {bhost}:{bport}",
+                  file=sys.stderr, flush=True)
+        if bsrc.ring_name is not None:
+            print(f"serve: binary ingest shm ring {bsrc.ring_name!r} created "
+                  "(co-located exporters attach by name)", file=sys.stderr, flush=True)
+        source, close = bsrc, bsrc.close
     else:
         tcp = TcpJsonlSource(reg.dispatch_ids(), port=args.port,
                              track_unknown=args.auto_register).start()
@@ -518,7 +553,9 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     # ingest health belongs in the service artifact: a zero-missed-deadline
     # line is only evidence if data was flowing and parsing cleanly
     for attr in ("records_parsed", "parse_errors", "unknown_ids", "native_active",
-                 "poll_failures", "polls_short_circuited"):
+                 "poll_failures", "polls_short_circuited", "frames_applied",
+                 "garbage_bytes", "rows_quota_dropped", "rows_late_dropped",
+                 "rows_backfilled", "rows_backpressure_dropped", "rows_stale_epoch"):
         v = getattr(source, attr, None)
         if v is not None:
             stats[attr] = v
@@ -758,6 +795,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--http", default=None,
                    help="poll this metrics endpoint each tick (default: TCP listener)")
     p.add_argument("--port", type=int, default=0, help="TCP listen port (0 = ephemeral)")
+    p.add_argument("--ingest-port", type=int, default=None,
+                   help="listen for the RB1 binary batch protocol on this "
+                        "port (0 = ephemeral) instead of per-record JSONL: "
+                        "length-prefixed CRC-framed frames of packed "
+                        "(slot, value, ts_delta) rows addressed by the "
+                        "registry's (shard, group, slot) slot map, decoded "
+                        "with zero per-record Python — the wire-speed "
+                        "ingest front end (python -m "
+                        "rtap_tpu_torch.ingest_bench measures it)")
+    p.add_argument("--ingest-shm", default=None,
+                   help="also create a shared-memory frame ring under this "
+                        "name for co-located exporters (same RB1 frames, "
+                        "no socket; combine with --ingest-port or use "
+                        "alone). The ring is drained once per tick")
+    p.add_argument("--ingest-quota", type=int, default=0,
+                   help="admission control: max binary-ingest rows per "
+                        "tenant per tick (frames carry a tenant header); "
+                        "rows beyond the quota are dropped + counted "
+                        "(rtap_obs_ingest_quota_dropped_total). 0 = off")
+    p.add_argument("--ingest-backfill-horizon", type=int, default=0,
+                   help="binary-ingest timestamp alignment: hold emission "
+                        "this many SECONDS (of row timestamp) behind the "
+                        "newest row seen, so late rows land in the slot "
+                        "their timestamp names instead of overwriting "
+                        "the latest value; older-than-horizon rows drop "
+                        "(counted). At the standard 1 s cadence a second "
+                        "is a tick. 0 = latest-wins (JSONL-equivalent "
+                        "semantics, the default)")
     p.add_argument("--ticks", type=int, default=60)
     p.add_argument("--cadence", type=float, default=1.0)
     p.add_argument("--preset", default="cluster",

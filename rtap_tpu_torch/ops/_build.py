@@ -1,10 +1,14 @@
-"""Build the port's CUDA kernels on first use and load them with ctypes.
+"""Build the port's CUDA kernels and host C libraries on first use.
 
 Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), under
 ``rtap_tpu_torch/_build/`` (listed in .gitignore), named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
-reused. A failed build raises; nothing falls back.
+reused. A failed kernel build raises; nothing falls back.
+
+The host parsers of ``native/`` (plain C99, no device code) build with the
+system ``cc`` into the same directory by :func:`build_host_c`, under the
+same naming; their loader decides what a failed build means.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -22,6 +27,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+CC_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c99")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -69,3 +76,26 @@ def load(name: str) -> ctypes.CDLL:
         path, _, _ = build(name)
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def build_host_c(src: Path) -> Path:
+    """Compile the host C source `src` with ``cc`` into a shared library in
+    BUILD_DIR named by a hash of the source and the flags; reuse it when it
+    exists. The library is written to a temp file and renamed into place, so
+    concurrent processes may race the build. Raises on any failure (no
+    compiler, a compile error)."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["cc", *CC_FLAGS, "-o", tmp, str(src)], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out

@@ -38,14 +38,15 @@ Fault vocabulary (``Fault.kind``):
   recovery path). Excluded from seed-GENERATED schedules
   (it would kill the generating test run); schedule it explicitly.
 - ``conn_drop`` / ``stall_socket`` / ``corrupt_bytes`` — network faults
-  on the byte-stream edges: the replication channel and the
-  binary-ingest wire consult ``ChaosEngine.on_wire`` per shipped
-  record. Excluded from the default generated draw (they fire only
-  where a wire seam exists, and adding them would shift existing
-  seeds' digests). In the port no seam calls :meth:`ChaosEngine.on_wire`
-  yet: its consumers are the binary-ingest wire and the replication
-  channel, which are not ported (ROADMAP M4/M5); the kinds stay in the
-  vocabulary so specs and digests match the JAX package's.
+  on a byte-stream edge: the replication channel consults
+  ``ChaosEngine.on_wire`` per shipped record (in the JAX package only
+  ``resilience/replicate.py`` calls it; the binary-ingest wire does not).
+  Excluded from the default generated draw (they fire only where a wire
+  seam exists, and adding them would shift existing seeds' digests). In
+  the port no seam calls :meth:`ChaosEngine.on_wire` yet: its one
+  consumer, the replication channel, is not ported (ROADMAP M5); the
+  kinds stay in the vocabulary so specs and digests match the JAX
+  package's.
 - ``topology_burst``      — the poll ADDS ``magnitude`` to the targeted
   stream indices for the fault window: a correlated multi-stream fault
   (a real blast radius, not one exporter misbehaving) for the incident-

@@ -31,10 +31,10 @@ crc32 covers type + payload_len + payload. Record types:
 - CURSOR (2): tick i64, alert-sink byte offset i64 (the alert-delivery
   cursor after each emitted chunk; a diagnostic trail — the load-bearing
   cursor lives in the checkpoint meta)
-- FRAME  (3): tick i64, ts i64, width i32, raw binary-ingest frame bytes.
-  Parsed and recovered like the JAX package does (the format is shared),
-  but the port appends none: its binary ingest is not ported, and its
-  journal replay skips such rows (counted).
+- FRAME  (3): tick i64, ts i64, width i32, raw binary-ingest frame bytes
+  (a tick fed by ``ingest.BinaryBatchSource``: 10 B per row that arrived
+  instead of 4 B per stream; the loop's replay re-runs the ingest scatter
+  over them through the registry's dispatch table).
 
 Segments rotate at ``segment_bytes`` and are bounded by ``max_segments``
 (oldest dropped + counted). ``compact(upto_tick)`` drops segments whose
@@ -59,9 +59,10 @@ __all__ = ["TickJournal", "JournaledFrames", "parse_fsync",
 
 
 class JournaledFrames:
-    """A FRAME record's payload: the raw binary-ingest wire frames of one
-    tick plus the dispatch width they were ingested at (written by the
-    JAX package's binary ingest; the port only reads them)."""
+    """A FRAME record's payload: the raw RB1 wire frames of one tick plus
+    the dispatch width they were ingested at. The loop's journal replay
+    materializes the value vector through the binary source's dispatch
+    table (the codes are meaningless without it)."""
 
     __slots__ = ("width", "blob")
 
@@ -418,17 +419,14 @@ class TickJournal:
         self._obs_appends.inc()
         self._obs_bytes.inc(len(rec))
 
-    def append_tick(self, tick: int, ts: int, values: np.ndarray) -> None:
-        """Append one ingested tick row (the write-ahead record): global
-        tick index, source timestamp, and the raw value vector in
-        dispatch/routing order. The append histogram covers format +
-        write + flush + policy fsync."""
-        t0 = time.perf_counter()
-        values = np.ascontiguousarray(values, np.float32)
-        payload = (_TICK_HEAD.pack(int(tick), int(ts), values.ndim)
-                   + b"".join(_DIM.pack(d) for d in values.shape)
-                   + values.tobytes())
-        self._append(_TICK, payload, int(tick))
+    def _append_tick_record(self, typ: int, tick: int, payload: bytes,
+                            t0: float) -> None:
+        """Shared tail of every tick-carrying append: write, advance the
+        tick cursor, run the fsync policy, observe the cost — TICK and
+        FRAME records never diverge in durability. ``t0`` is taken before
+        the caller builds its payload, so the append histogram covers
+        format + write + flush + policy fsync."""
+        self._append(typ, payload, int(tick))
         self.appended_ticks += 1
         self.next_tick = max(self.next_tick, int(tick) + 1)
         if self.fsync == "every-tick":
@@ -438,6 +436,26 @@ class TickJournal:
             if self._ticks_since_fsync >= self.fsync_every:
                 self._fsync()
         self._obs_append_seconds.observe(time.perf_counter() - t0)
+
+    def append_tick(self, tick: int, ts: int, values: np.ndarray) -> None:
+        """Append one ingested tick row (the write-ahead record): global
+        tick index, source timestamp, and the raw value vector in
+        dispatch/routing order."""
+        t0 = time.perf_counter()
+        values = np.ascontiguousarray(values, np.float32)
+        payload = (_TICK_HEAD.pack(int(tick), int(ts), values.ndim)
+                   + b"".join(_DIM.pack(d) for d in values.shape)
+                   + values.tobytes())
+        self._append_tick_record(_TICK, tick, payload, t0)
+
+    def append_tick_frames(self, tick: int, ts: int, width: int, frames) -> None:
+        """Append one ingested tick as its RAW binary ingest frames: the
+        wire bytes land verbatim (no full-width re-encode), plus the
+        dispatch width replay validates against. An empty frame list is a
+        legal all-NaN tick (no data arrived)."""
+        t0 = time.perf_counter()
+        payload = _FRAME_HEAD.pack(int(tick), int(ts), int(width)) + b"".join(frames)
+        self._append_tick_record(_FRAME, tick, payload, t0)
 
     def append_cursor(self, tick: int, alerts_offset: int) -> None:
         """Append an alert-delivery cursor: alerts through global `tick`

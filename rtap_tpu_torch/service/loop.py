@@ -24,8 +24,13 @@ observability hooks — span trace, flight recorder, latency sketches, SLOs,
 alert attribution — observe host wall clocks only and never synchronise
 the device.
 
+A binary ingest source (ingest.BinaryBatchSource) gets the registry's slot
+map on every membership change, and its tick journals as the raw wire
+frames that composed it (a FRAME record), which a resume decodes back into
+the row through the registry's dispatch table.
+
 Not ported (ROADMAP.md queue A): leases and replication, dispatch threads,
-chunk stagger, AOT warm-up, fleet publishing, binary ingest.
+chunk stagger, AOT warm-up, fleet publishing.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 import rtap_tpu_torch.ops.tm_learn as tm_learn
+from rtap_tpu_torch.ingest.dispatch import DispatchTable, decode_frames_to_row
 from rtap_tpu_torch.obs import TickWatchdog, get_registry
 from rtap_tpu_torch.resilience.journal import JournaledFrames
 from rtap_tpu_torch.resilience.policies import CircuitBreaker
@@ -75,11 +81,14 @@ _PHASES = ("source", "membership", "dispatch", "collect", "emit", "checkpoint")
 
 
 def _sync_source_membership(source, reg: StreamGroupRegistry) -> None:
-    """Push the registry's dispatch-order ids to a source that keeps its
-    own id table (TcpJsonlSource, HttpPollSource) after a membership
-    change. Other sources size their vector to ``reg.dispatch_ids()``
-    themselves (the length check is the guard)."""
-    if hasattr(source, "set_ids"):
+    """Push the registry's membership to the source after any change:
+    slot-map-addressed sources (ingest.BinaryBatchSource) get the (shard,
+    group, slot) map, flat-id sources (TcpJsonlSource, HttpPollSource) the
+    dispatch-order id list. Other sources size their vector to
+    ``reg.dispatch_ids()`` themselves (the length check is the guard)."""
+    if hasattr(source, "set_slot_map"):
+        source.set_slot_map(reg.slot_map())
+    elif hasattr(source, "set_ids"):
         source.set_ids(reg.dispatch_ids())
 
 
@@ -627,13 +636,20 @@ def live_loop(
             # rows): scoring row jt as an earlier tick would corrupt state
             # and alert ids, so the group is quarantined instead
             gap_groups: set = set()
+            jtable = None  # dispatch table for FRAME records, built once
             for jt, jts, jvals in jrows:
                 if isinstance(jvals, JournaledFrames):
-                    # a binary-ingest row of the JAX package: its decode
-                    # (the dispatch table) is not ported
-                    journal_replay["skipped_rows"] += 1
-                    continue
-                jvals = np.asarray(jvals, np.float32)
+                    # a binary ingest tick: materialize the row by re-running
+                    # the ingest scatter over the raw frames (bit-exact;
+                    # membership changes checkpoint + compact at their boundary)
+                    if jvals.width != n_expected or reg is None:
+                        journal_replay["skipped_rows"] += 1
+                        continue
+                    if jtable is None:
+                        jtable = DispatchTable.from_registry(reg)
+                    jvals = decode_frames_to_row([jvals.blob], jvals.width, jtable)
+                else:
+                    jvals = np.asarray(jvals, np.float32)
                 if len(jvals) != n_expected:
                     # membership changed between record and resume without
                     # a checkpoint dir (every in-loop change checkpoints)
@@ -876,6 +892,7 @@ def live_loop(
                 # at the block start with the BOOKED duration (drains inside
                 # the block own their spans)
                 trace.add_span("membership", k, t_start, max(0.0, mem_booked))
+            tick_frames = None  # raw binary ingest frames (the journal's payload)
             try:
                 values, ts = source(k)
             except Exception as e:
@@ -890,6 +907,10 @@ def live_loop(
                 ts = last_ts_seen if last_ts_seen is not None else int(time.time())
             else:
                 source_error_run = 0
+                if journal is not None and hasattr(source, "take_tick_frames"):
+                    # only a successful poll journals raw frames: the NaN
+                    # fallback tick journals as the full-width row it scored
+                    tick_frames = source.take_tick_frames()
             src_t1 = time.perf_counter()
             phase_s["source"] += src_t1 - now
             if trace is not None:
@@ -923,9 +944,14 @@ def live_loop(
                 last_ts_seen = ts
             if journal is not None:
                 # the write-ahead moment: the row is flushed to the kernel
-                # before any scoring; a death past here replays this tick
+                # before any scoring; a death past here replays this tick.
+                # A binary ingest tick journals its raw wire frames (10 B
+                # per row that arrived) instead of the full-width vector
                 t_append = time.perf_counter()
-                journal.append_tick(journal_base + k, ts, values)
+                if tick_frames is not None:
+                    journal.append_tick_frames(journal_base + k, ts, len(values), tick_frames)
+                else:
+                    journal.append_tick(journal_base + k, ts, values)
                 journal_append_s += time.perf_counter() - t_append
             if chaos is not None:
                 # proc_exit fires here, after the row is journaled, so a

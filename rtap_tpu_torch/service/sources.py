@@ -11,10 +11,11 @@ registered stream id per tick and NaN for streams that sent nothing.
   records ``{"id": ..., "value": ..., "ts": ...}`` from any number of
   producers; each tick drains the latest value per stream.
 
-Records are parsed in Python on the listener's connection threads, which
-touch numpy buffers only (every torch call stays on the loop's thread).
-The JAX package's native C parser and its binary batch ingest are not
-ported: ``native_active`` is always False.
+Records are parsed on the listener's connection threads, which touch numpy
+buffers only (every torch call stays on the loop's thread): by the native C
+parser (``rtap_tpu_torch/native/jsonl_parser.c``, one locked C call per
+recv chunk) when ``cc`` builds it, else in Python; ``native_active`` says
+which. The binary batch source is ``rtap_tpu_torch.ingest.BinaryBatchSource``.
 """
 
 from __future__ import annotations
@@ -137,24 +138,26 @@ class TcpJsonlSource:
 
     Start/stop with a context manager (or .start()/.close()). Record parse
     errors are counted, never raised (a malformed producer must not kill
-    the scoring loop).
+    the scoring loop). ``native=None`` uses the C parser when it builds and
+    Python otherwise; ``True`` requires it; ``False`` forces Python. Both
+    paths count in the same order: an unknown id is checked before the
+    value converts, the value is written before the ts converts, and a
+    record counts as parsed only once both converted.
     """
 
     #: bound on remembered unknown-id names (track_unknown mode)
     MAX_UNKNOWN_TRACKED = 4096
-    #: the JSONL records are parsed in Python; the native C parser is not ported
-    native_active = False
 
     def __init__(self, stream_ids: list[str], host: str = "127.0.0.1", port: int = 0,
-                 track_unknown: bool = False):
+                 native: bool | None = None, track_unknown: bool = False):
         self.stream_ids = list(stream_ids)
         self._index = {sid: i for i, sid in enumerate(self.stream_ids)}
         self._latest = np.full(len(self.stream_ids), np.nan, np.float32)
         self._latest_ts = 0
         self._lock = threading.Lock()
-        self.parse_errors = 0
-        self.unknown_ids = 0
-        self.records_parsed = 0
+        self._py_parse_errors = 0
+        self._py_unknown_ids = 0
+        self._py_records = 0
         self._track_unknown = bool(track_unknown)
         self._unknown_seen: set[str] = set()
         obs = get_registry()
@@ -168,36 +171,61 @@ class TcpJsonlSource:
             "--auto-register, otherwise dropped)")
         self._obs_records = obs.counter(
             "rtap_obs_ingest_records_total",
-            "successfully parsed ingest records")
+            "successfully parsed ingest records (JSONL records and "
+            "binary batch rows, both parser backends)")
+        # the native parse state: one locked C call per recv chunk instead
+        # of json.loads + dict lookup + lock per record
+        self._nstate = None
+        if native is not False:
+            try:
+                from rtap_tpu_torch.native import NativeJsonlState
+
+                self._nstate = NativeJsonlState(self.stream_ids, self._latest,
+                                                track_unknown=self._track_unknown)
+            except Exception:
+                if native:
+                    raise
         outer = self
 
         class Handler(socketserver.StreamRequestHandler):
             def handle(self):
+                if outer._nstate is not None:
+                    conn = outer._nstate.new_conn()
+                    try:
+                        while True:
+                            data = self.connection.recv(65536)
+                            if not data:
+                                break
+                            with outer._lock:
+                                conn.feed(data)
+                        with outer._lock:
+                            conn.flush()  # unterminated final line, like rfile
+                    finally:
+                        conn.close()
+                    return
                 for line in self.rfile:
                     try:
                         rec = json.loads(line)
                         sid = rec["id"]
                         # index resolved under the SAME lock as the write:
-                        # set_ids swaps (_index, _latest) together. The
-                        # unknown check precedes value conversion, and the
-                        # value write precedes the ts conversion (a bad ts
-                        # counts a parse error but keeps the value), as in
-                        # the JAX package.
+                        # set_ids swaps (_index, _latest) together
                         with outer._lock:
                             i = outer._index.get(sid)
                             if i is None:
-                                outer.unknown_ids += 1
+                                outer._py_unknown_ids += 1
                                 if outer._track_unknown and isinstance(sid, str) and \
                                         len(outer._unknown_seen) < outer.MAX_UNKNOWN_TRACKED:
                                     outer._unknown_seen.add(sid)
                                 continue
                             outer._latest[i] = np.float32(rec["value"])
                             outer._latest_ts = max(outer._latest_ts, int(rec.get("ts", 0)))
-                            outer.records_parsed += 1
+                            # counted after the ts converted: a bad ts keeps
+                            # the value but is a parse error (the C order)
+                            outer._py_records += 1
                     except Exception:
                         # any malformed record is counted and dropped
                         with outer._lock:
-                            outer.parse_errors += 1
+                            outer._py_parse_errors += 1
 
         class Server(socketserver.ThreadingTCPServer):
             allow_reuse_address = True
@@ -224,12 +252,36 @@ class TcpJsonlSource:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    @property
+    def parse_errors(self) -> int:
+        n = int(self._nstate.counters[1]) if self._nstate is not None else 0
+        return self._py_parse_errors + n
+
+    @property
+    def unknown_ids(self) -> int:
+        n = int(self._nstate.counters[2]) if self._nstate is not None else 0
+        return self._py_unknown_ids + n
+
+    @property
+    def records_parsed(self) -> int:
+        """Successful records on both parser backends."""
+        n = int(self._nstate.counters[0]) if self._nstate is not None else 0
+        return self._py_records + n
+
+    @property
+    def native_active(self) -> bool:
+        return self._nstate is not None
+
     def drain_unknown(self) -> list[str]:
         """Pop the unknown-id names seen since the last drain (sorted).
         Empty unless track_unknown."""
         if not self._track_unknown:
             return []
         with self._lock:
+            if self._nstate is not None:
+                for sid in self._nstate.drain_unknown_names():
+                    if len(self._unknown_seen) < self.MAX_UNKNOWN_TRACKED:
+                        self._unknown_seen.add(sid)
             seen = sorted(self._unknown_seen)
             self._unknown_seen.clear()
         return seen
@@ -237,13 +289,17 @@ class TcpJsonlSource:
     def set_ids(self, stream_ids: list[str]) -> None:
         """Replace the accepted id set (registry membership changed).
         Latest values carry over by id; new ids start at NaN; the snapshot
-        order is the caller's (the registry's dispatch order)."""
+        order is the caller's (the registry's dispatch order). The native
+        table swaps under the lock that serializes feed(), so a connection's
+        partial line survives and its next line sees the new table."""
         with self._lock:
             latest = np.full(len(stream_ids), np.nan, np.float32)
             for j, sid in enumerate(stream_ids):
                 i = self._index.get(sid)
                 if i is not None:
                     latest[j] = self._latest[i]
+            if self._nstate is not None:
+                self._nstate.set_table(stream_ids, latest)
             self.stream_ids = list(stream_ids)
             self._index = {sid: i for i, sid in enumerate(self.stream_ids)}
             self._latest = latest
@@ -255,16 +311,17 @@ class TcpJsonlSource:
         with self._lock:
             values = self._latest.copy()
             self._latest[:] = np.nan
+            if self._nstate is not None:
+                self._latest_ts = max(self._latest_ts, int(self._nstate.ts_buf[0]))
             ts = self._latest_ts or int(time.time())
-            tallies = {"pe": self.parse_errors, "uk": self.unknown_ids,
-                       "rec": self.records_parsed}
         # once-per-tick delta sync of THIS instance's tallies into the
-        # process-global counters (two sources over a process lifetime sum)
-        for key, counter in (("pe", self._obs_parse_errors),
-                             ("uk", self._obs_unknown_ids),
-                             ("rec", self._obs_records)):
-            counter.inc(max(0, tallies[key] - self._obs_synced[key]))
-            self._obs_synced[key] = tallies[key]
+        # process-global counters (two sources over a process lifetime sum);
+        # each tally is read once, as the handler threads keep bumping it
+        for key, counter, n in (("pe", self._obs_parse_errors, self.parse_errors),
+                                ("uk", self._obs_unknown_ids, self.unknown_ids),
+                                ("rec", self._obs_records, self.records_parsed)):
+            counter.inc(max(0, n - self._obs_synced[key]))
+            self._obs_synced[key] = n
         return values, ts
 
 

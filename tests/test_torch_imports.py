@@ -51,7 +51,10 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/obs/trace.py", "rtap_tpu_torch/obs/flight.py",
             "rtap_tpu_torch/obs/latency.py", "rtap_tpu_torch/obs/slo.py",
             "rtap_tpu_torch/obs/expo.py", "rtap_tpu_torch/obs/selfbench.py",
-            "rtap_tpu_torch/service/attribution.py"} <= names
+            "rtap_tpu_torch/service/attribution.py", "rtap_tpu_torch/native/__init__.py",
+            "rtap_tpu_torch/ingest/protocol.py", "rtap_tpu_torch/ingest/dispatch.py",
+            "rtap_tpu_torch/ingest/shm.py", "rtap_tpu_torch/ingest/emit.py",
+            "rtap_tpu_torch/ingest/server.py", "rtap_tpu_torch/ingest_bench.py"} <= names
     assert "rtap_tpu_torch/eval/lead_time.py" not in names  # folded into eval/fault_eval.py
 
 
@@ -59,3 +62,19 @@ def test_scan_covers_the_package():
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path) if _banned(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_no_file_names_the_jax_native_build():
+    """The host C sources and their builds are the port's own: no file of
+    rtap_tpu_torch/ (sources, C, docs) and not chip_smoke.py names a path
+    under the JAX package's native/ directory, so nothing compiles, opens or
+    loads the JAX package's sources or libraries."""
+    files = [p for p in (ROOT / "rtap_tpu_torch").rglob("*")
+             if p.is_file() and "_build" not in p.parts and "__pycache__" not in p.parts]
+    assert {"native/jsonl_parser.c", "native/frame_walker.c"} <= \
+        {p.relative_to(ROOT / "rtap_tpu_torch").as_posix() for p in files}
+    jax_native = "rtap_tpu" + "/native"
+    bad = [p.relative_to(ROOT).as_posix() for p in files + [ROOT / "chip_smoke.py"]
+           if jax_native in p.read_text(errors="replace")
+           or "rtap_tpu.native" in p.read_text(errors="replace")]
+    assert not bad, f"these name the JAX package's native/ directory: {bad}"

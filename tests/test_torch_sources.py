@@ -86,9 +86,12 @@ def test_http_poll_source_survives_dead_endpoint():
     assert np.isnan(values).all() and src.poll_failures == 1 and ts > 0
 
 
-def test_tcp_jsonl_source_live_loop(group):
-    with TcpJsonlSource(IDS) as src:
-        assert src.native_active is False
+@pytest.mark.parametrize("native", [False, None], ids=["python", "default"])
+def test_tcp_jsonl_source_live_loop(group, native):
+    # native=False forces the Python parser; the default takes the C parser
+    # wherever cc builds it (here it does)
+    with TcpJsonlSource(IDS, native=native) as src:
+        assert src.native_active is (native is None)
         send_jsonl(src.address, [{"id": sid, "value": 30.0 + i, "ts": 1_700_000_000 + i}
                                  for i, sid in enumerate(IDS)])
         send_jsonl(src.address, [{"id": "unknown.metric", "value": 1.0},
