@@ -1,10 +1,17 @@
-"""Drive the PyTorch port's replay, serve, ingest, resilience, failover, control-plane, checkpoint-import, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve (with its scheduling flags), ingest, resilience, failover, control-plane, checkpoint-import, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T] [--deadline-s D]
 
 Phases, one JSON line each; any failure raises and exits non-zero. Each
 phase prints ``{"phase": "phase_end", "name": ..., "seconds": ...}`` as it
-ends. The whole run has a deadline (--deadline-s, default 1,140 s from the
+ends, and ``{"phase": "part", "name": "<phase>: <part>", "seconds": ...}``
+for its parts: each serve child's start until it listens, its registry
+build, its warm-up, its tick 0, its fed ticks and its exit; each CPU
+reference run, soak, save and reload. Before phase 1 one ``{"phase":
+"host", ...}`` line says what the host is: its cores (all and this
+process's), CPU model, load average, torch's threads, memory, and the
+seconds of a fixed seeded CPU workload (200 plain TM passes on a 16-stream
+state, one thread), a host-speed marker apart from the phases' own code. The whole run has a deadline (--deadline-s, default 1,140 s from the
 script's start): every wait draws on it, and when it is reached the
 running phase's children are killed by process group, one line
 ``{"phase": "deadline", "running": <phase>, "phase_seconds": {...}}`` is
@@ -14,7 +21,7 @@ printed and the run exits 4.
 2. build: the TM learning kernel, rtap_tpu_torch/csrc/tm_learn.cu, with nvcc
    for sm_90a.
 3. kernel vs plain: the TM learning-pass kernel against its plain PyTorch
-   version on states that went through --warm-ticks (150) real learning ticks
+   version on states that went through --warm-ticks (100; 150 until phase 25) real learning ticks
    (cluster preset, G = 64, u16 and f32 domains; NAB preset geometry,
    G = 1, W = 1280), bit for bit, with CUDA-event times and the byte bounds
    (``ops/tm_learn.pass_bytes``: what these inputs need, and every row in
@@ -35,43 +42,44 @@ printed and the run exits 4.
 6. serve: ``python -m rtap_tpu_torch serve`` as a child process, cluster
    preset at full width, 32,768 stream ids (``--streams @file``) in groups
    of 4,096, pipeline depth 2, 1 s cadence, 25 ticks learning every tick,
-   alerts, the write-ahead journal and checkpoints (a save round at tick
-   20 and on exit) on; a feeder here pushes one tick of seeded synthetic
+   alerts, the write-ahead journal and a checkpoint round on exit (phase 25
+   saves in the loop at this shape) on; a feeder here pushes one tick of seeded synthetic
    cluster values over TCP (``send_jsonl``) each time the child journals a
    tick, so every tick after the first polls one whole fed tick. The child
    must exit 0 with every tick scored for every stream, no value missing
    past tick 0, every record sent parsed by the native C parser
    (``native_active``), no parse errors or unknown ids, no
-   capacity overflow, both checkpoint rounds saved, its telemetry registry
+   capacity overflow, the checkpoint round saved, its telemetry registry
    agreeing with its stats, and one kernel launch per group per tick (the
-   child's own counts, from 0). Only tick 0 and the in-loop save tick (19;
-   the exit save follows the last tick) may miss the 1 s deadline: the
-   missed_tick events are read from the
-   child's alert stream and each is gated, its phase split reported. Tick
+   child's own counts, from 0). No tick may miss the 1 s deadline, tick 0
+   included (the exit save follows the last tick): the warm-up (``--aot-warmup``, on by default) ran its one program before
+   it, with no program dispatched cold after. The missed_tick events are
+   read from the child's alert stream and each is gated, its phase split
+   reported; tick 0's ms and the warm-up's seconds are reported. Tick
    latency, per-phase ms, seconds per group save, the parse rate alone
    (native and Python) and peak device memory are reported, not gated,
    beside the figures of the Python parser's run. The final checkpoint's
    per-leaf digest and the alert records are kept for phase 22(a).
-7. kill -9 drill: this script's hidden ``--child`` mode runs the chaos
-   soak's journaled child (2,048 streams in 2 groups, 32 ticks at cadence 0,
-   checkpoints every 16 ticks, journal on, a seeded source keyed by the
-   global tick, every stream alerting every tick) once without faults, then
-   again with a SIGKILL at a journal-observed tick off the save grid,
+7. kill -9 drill: the chaos soak's journaled child (2,048 streams in 2
+   groups, 32 ticks at cadence 0, checkpoints every 16 ticks, journal on, a
+   seeded source keyed by the global tick, every stream alerting every
+   tick) once without faults in this process, then as this script's hidden
+   ``--child`` mode with a SIGKILL at a journal-observed tick off the save grid,
    restarted until its tick budget is done: final checkpoint leaves
    bit-equal to the fault-free run, every alert id exactly once with equal
    record bytes, both kills rc -9, and the fault-free child's launches
    equal to groups x learning ticks.
 8. serve with the model-side and observability flags: phase 6's serve
-   (32,768 streams in 8 groups of 4,096, depth 2, 1 s cadence, 14 learning
-   ticks, the journal, the tick-gated feeder) with ``--health --predict
+   (32,768 streams in 8 groups of 4,096, depth 2, 1 s cadence, 12 learning
+   ticks, the journal, the tick-gated feeder, phase 6's values) with ``--health --predict
    --topology infer --latency --slo tick=1s@p99 --trace-out F
    --postmortem-dir D --flight-ticks 64 --obs-port 0
    --alert-attribution``, ids renamed ``svc<s>-<n>.<metric>`` so the
    inferred topology groups them (128 services), timestamps anchored ahead
    of the wall clock, and no checkpoint dir. Once the child journals tick
-   12 this script GETs /metrics, /healthz, /latency, /health, /predict,
+   10 this script GETs /metrics, /healthz, /latency, /health, /predict,
    /incidents and /trace?last=5. Gates: exit 0, every tick scored, one
-   kernel launch per learned group tick, 8 x 14 health and predict folds,
+   kernel launch per learned group tick, 8 x 12 health and predict folds,
    a finite fleet miss EWMA, every tracker armed, ``<alerts>.epoch`` at 1;
    every route 200, the Prometheus text parses and carries the registry's
    ``rtap_obs_*`` families (each one of the child's), /healthz ok; the
@@ -90,33 +98,34 @@ printed and the run exits 4.
    slice of that state on the card and on the CPU with both reducers:
    predict leaves, raw and state bit for bit, health integers exact and
    floats at rtol=1e-5, atol=1e-6.
-10. the cascade eval: ``python -m rtap_tpu_torch.predict_eval`` at the JAX
+10. the cascade eval: ``python -m rtap_tpu_torch.predict_eval`` (its main,
+   in this process, but for the killed life) at the JAX
    script's defaults on the card (win, blast covered, 0 false precursors)
    and on this machine's CPU (the same page tick and first-precursor
    ticks); then on the card with ``--workdir``, killed with SIGKILL once
    its first precursor is on the alert stream and resumed from its
    checkpoint and journal: every precursor, predicted_incident and
    incident id exactly once, the page tick unchanged.
-11. the NAB corpus: ``python -m rtap_tpu_torch nab`` as a child on the card
-   over data/nab (8 files, 32,256 records, nab_preset, every file one stream
+11. the NAB corpus: ``python -m rtap_tpu_torch nab`` (its main, in this
+   process) on the card over data/nab (8 files, 32,256 records, nab_preset, every file one stream
    of one group): the JAX package's quality floors for this corpus, finite
    per-file scores, one kernel launch per learning tick; wall time,
    records/s and peak device memory reported, the scores beside the JAX
    package's TPU run of the same corpus (quality only). The group's final
-   state, saved by the child, holds the kernel to its plain version after
+   state, saved by the run, holds the kernel to its plain version after
    4,032 learning ticks. Then card == CPU on the first NAB_CPU_ROWS rows of
    one file (raw equal, loglik within 1e-12, scores equal): past the
    likelihood probation, what the CPU runs in about 40 s at this width.
 12. ``AnomalyDetector`` on the card over golden_config1's stream: raw equal
    to tests/golden/golden_config1.npz, loglik within 1e-12; saved at row
    200, loaded and continued: the same rows.
-13. the SDR classifier: cluster_preset + classifier at G = 64 over 64
+13. the SDR classifier: cluster_preset + classifier at G = 64 over 32
    learning ticks on the card and the CPU: raw, the model leaves and
    cls_cnt bit for bit, cls_w at rtol 1e-5 / atol 1e-6, predictions and
    probabilities within 1e-4.
-14. ``serve --preset nab`` (64 streams in one group, 6 ticks),
+14. ``serve --preset nab`` (64 streams in one group, 4 ticks),
    ``--preset composite`` and ``--preset categorical`` (4,096 streams in one
-   group, 4 ticks each) fed by phase 6's tick-gated TCP feeder at 1 s
+   group, 3 ticks each) fed by phase 6's tick-gated TCP feeder at 1 s
    cadence: every tick after tick 0 under 1 s, values missing only at tick
    0, well-formed alert lines, one launch per group per learning tick; peak
    device memory reported.
@@ -169,21 +178,22 @@ printed and the run exits 4.
    process (the fleet publisher's ``measure_fleet`` among them) at most 1%
    of the 1 s tick budget, microseconds reported.
 21. binary ingest, each part with its seconds: (a) ``serve --ingest-port
-   0`` at phase 6's shape (8 ticks) without the checkpoint dir, fed phase 6's ticks
+   0`` at phase 6's shape (6 ticks) without the checkpoint dir, fed phase 6's ticks
    as one RB1 DATA frame per tick over a persistent BinaryFeedConnection
    (slot codes from its hello MAP) in step with the child's journal: every
    row sent parsed, no garbage, parse errors, unknown ids or dropped rows,
-   ``native_active``, 8 x 14 launches, only tick 0 missed, and the
-   journal's 14 FRAME records holding exactly the frames fed; tick latency,
+   ``native_active``, 8 x 6 launches, only tick 0 missed, and the
+   journal's 6 FRAME records holding exactly the frames fed; tick latency,
    per-phase ms, journal bytes and append ms per tick and peak memory
    reported. (b) the drill's shape through live_loop on the card over
    TcpJsonlSource (native), BinaryBatchSource's socket and its shm ring, in
    lockstep: alert lines byte-identical, final leaves bit-equal, launches
    the learned group ticks. (c) ``serve --ingest-port 0 --journal-dir
-   --checkpoint-dir`` at the drill's shape, once uninterrupted and once
-   SIGKILLed at journal tick 20 and restarted over the same directories:
-   FRAME rows replayed with none skipped, every alert id once, alert lines
-   and final leaves equal to the uninterrupted run's. (d) ``python -m
+   --checkpoint-dir`` at the drill's shape, SIGKILLed at journal tick 20
+   and restarted over the same directories: FRAME rows replayed with none
+   skipped, every alert id once, alert lines and final leaves equal to the
+   uninterrupted run's (the same registry and loop over the same values in
+   this process). (d) ``python -m
    rtap_tpu_torch.ingest_bench`` at the JAX package's defaults (1,000,000
    records, 4,096 streams, 8,192 rows per frame): each transport's
    records/s, the host's cores and machine, and the JAX package's gates
@@ -198,7 +208,7 @@ printed and the run exits 4.
    17-24 (inside the 400-tick probation every stream's log-likelihood is
    one constant, so no threshold selects a subset of streams), fed phase
    6's ticks by whichever process the lease names; the leader is
-   SIGKILLed 0.3 s after it journals tick 21 (off the save grid; its
+   SIGKILLed 0.3 s after it journals tick 21 (its
    sender has shipped the tick, its next poll is ~1 s away), the
    standby promotes on lease staleness, checkpoints its warm fleet and
    serves the rest. Gates: the promoted process exits 0 on phase 6's final
@@ -209,8 +219,8 @@ printed and the run exits 4.
    from the standby's buffer, the standby applied every tick the leader
    journaled, one launch per group per applied and per served tick, the
    takeover within 10 ticks at lease epoch 2, no value missing after the
-   takeover, and only tick 0, the save tick and the takeover tick past 1
-   s. Reported: the leader's tick quantiles (its sketch, scraped before its
+   takeover, and only tick 0, the leader's save tick (19) and the takeover
+   tick past 1 s. Reported: the leader's tick quantiles (its sketch, scraped before its
    death) beside phase 6's, the replication counters and bytes per tick,
    the standby's apply ms per tick, the takeover split (detection, splice,
    the warm-fleet checkpoint, lease flip, listener, first served tick),
@@ -266,6 +276,25 @@ printed and the run exits 4.
    Reported: each import's seconds split into OCDBT reading, zarr
    assembly, zstd decoding and the device copy, the bytes, the decoder's
    MB/s and that rate extrapolated to one 4,096-stream group.
+25. the scheduling flags: phase 6's serve (32,768 streams in 8 groups of
+   4,096, depth 2, 1 s cadence, the journal, phase 6's feed) for 16 ticks
+   with ``--micro-chunk 4 --chunk-stagger --stagger-learn --learn-every 4
+   --learn-full-until 0 --dispatch-threads 4``, the warm-up on (the
+   default), checkpoints every 8 ticks, threshold 0 and debounce 13 (every
+   stream alerts on ticks 12-15). Gates: (a) only the save ticks (7, 15)
+   miss, the warm-up ran every knowable program (4 configs x chunk lengths
+   1-4) and none was dispatched cold; (b) the exit checkpoint equals, leaf
+   for leaf (phase 22(a)'s per-leaf digest), the same staggered registry
+   stepped here one tick at a time with no chunk stagger and no threads,
+   and so do the alert ids' raw scores and log-likelihoods (the reference
+   runs while the child serves its last tick, a save tick); (c) on every
+   tick exactly 2 of the 8 groups learn and the tick launches 2 passes,
+   and each tick but the save ticks dispatches one phase class (2 groups);
+   (d) the child's launches equal its learned group-ticks and the
+   reference's, the warm-up's counted apart, and group 0's ticks stepped
+   again through the plain TM pass on the card end leaf-equal to the
+   kernel's; (e) 4 dispatch threads. Each tick's launches and dispatch ms
+   are reported beside phase 6's per-tick phase ms.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -274,6 +303,7 @@ Exits non-zero without printing a result when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -296,8 +326,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM 32-bit non-tensor peak (NVIDIA data sheet)
 KERNEL_SOURCE = "rtap_tpu_torch/csrc/tm_learn.cu"
 KERNEL_REPLACES = "rtap_tpu/ops/pallas_tm.py:86"
 DENSE_STREAMS = 2048  # the dense row's G: the plain version finishes it in seconds
-SERVE_STREAMS, SERVE_GROUP, SERVE_TICKS = 32768, 4096, 25  # phase 6 (cut from 40 for phase 24)
-SERVE_CHECKPOINT_EVERY = 20  # one save round mid-run, one on exit
+# phase 6 (ticks cut from 40 to 25 for phase 24; 22(a)'s standby, which
+# starts following ~10 ticks behind its leader, needs ~20 to catch up
+# before the kill). Phase 6 saves on exit only since phase 25: its in-loop
+# save round at 32,768 streams (ticks 7 and 15) is the same save path at
+# the same shape
+SERVE_STREAMS, SERVE_GROUP, SERVE_TICKS = 32768, 4096, 25
 # phase 7: 2 groups; the drill's shape for phases 9, 19(c), 21(b)-(c) too
 # (32 ticks: cut from 96 to 64 for phase 22, to 48 for phase 23, to 32 for
 # phase 24)
@@ -318,12 +352,12 @@ NAB_FLOORS = {"standard": 6.0, "reward_low_FN": 15.0, "reward_low_FP": 2.0}
 # scores are 0.0 on both sides and raw and loglik carry the comparison)
 NAB_CPU_SUBSET, NAB_CPU_ROWS = "realAWSCloudwatch/ec2_cpu_utilization_5f5533", 400
 GOLDEN_ROWS, GOLDEN_SAVE_AT = 400, 200  # phase 12
-CLS_STREAMS, CLS_TICKS = 64, 64  # phase 13
+CLS_STREAMS, CLS_TICKS = 64, 32  # phase 13 (64 ticks until phase 25)
 # phase 14: (preset, streams, group size, ticks)
-# (ticks cut from 30, 20 and 20, then 16, 10 and 10, then 10, 6 and 6, to
-# make room for phases 22, 23 and 24)
-PRESET_SERVES = (("nab", 64, 64, 6), ("composite", 4096, 4096, 4),
-                 ("categorical", 4096, 4096, 4))
+# (ticks cut from 30, 20 and 20, then 16, 10 and 10, then 10, 6 and 6, then
+# 6, 4 and 4, then 4, 3 and 3, to make room for phases 22-25)
+PRESET_SERVES = (("nab", 64, 64, 4), ("composite", 4096, 4096, 3),
+                 ("categorical", 4096, 4096, 3))
 EVAL_1K_STREAMS, NODE_STREAMS = 1000, 12  # phase 3's eval and node rows
 # phase 15: (streams, ticks) of tests/integration/test_fault_eval.py's
 # fixture, of reports/fault_eval*.json, and of BASELINE config 3
@@ -356,7 +390,7 @@ REPORT_TICKS = 900  # phase 18: the report's replay, one group
 # phase 8: the obs scrape happens once the child journals this tick; phase
 # 8's tick latency without the obs flags (p50, p99 ms, PERF.md section 2;
 # NVIDIA H100 80GB HBM3, 700.00 W) is reported beside
-OBS_SCRAPE_TICK = 12  # 20 until phase 24
+OBS_SCRAPE_TICK = 10  # 20 until phase 24, 12 until phase 25
 PHASE8_WITHOUT_OBS_MS = (349.435, 826.919)
 # phase 6 with the Python JSONL parser (run 1 of the previous slice's smoke,
 # PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), reported beside the native run
@@ -388,12 +422,13 @@ DEGRADE_DRILL = dict(streams=DRILL_STREAMS, group_size=DRILL_GROUP, ticks=100, c
 SUPERVISE_KILLS = 1  # 2 until phase 24
 # phase 8 and 21(a) run phase 6's shape at this depth (cut from 40 ticks to
 # 24 and 20 for phase 22, then to 22 and 14 for phase 23, then to 14 and 8
-# for phase 24; phase 8's obs scrape at OBS_SCRAPE_TICK still lands, and its
-# k = 8 predictor's miss EWMA is finite from tick 9)
-MODEL_SIDE_TICKS, BINARY_SERVE_TICKS = 14, 8
+# for phase 24, then to 12 and 6 for phase 25; phase 8's obs scrape at
+# OBS_SCRAPE_TICK still lands, and its k = 8 predictor's miss EWMA is finite
+# from tick 9)
+MODEL_SIDE_TICKS, BINARY_SERVE_TICKS = 12, 6
 # phase 22: (a) phase 6's serve as a leader/standby pair, the leader
-# SIGKILLed once its journal holds FAILOVER_KILL_AT (off the 20-tick save
-# grid), the lease timeout chosen above the heartbeat gaps a save round
+# SIGKILLed once its journal holds FAILOVER_KILL_AT (25 at 40 ticks), the
+# lease timeout chosen above the heartbeat gaps a save round
 # leaves (PERF.md), takeovers detected within the budget; (b) the failover
 # soak at the drill's shape; (c) the replication chaos soak (seed 1's
 # 32-tick schedule at rate 0.15 draws all three wire kinds)
@@ -402,14 +437,19 @@ FAILOVER_KILL_AT, FAILOVER_LEASE_TIMEOUT, FAILOVER_TAKEOVER_BUDGET = 21, 2.0, 10
 # log-likelihood is the same constant (0.0301), so no threshold picks a
 # subset of streams; threshold 0 with a debounce of FAILOVER_DEBOUNCE ticks
 # makes every stream alert on the ticks FAILOVER_DEBOUNCE - 1 .. SERVE_TICKS -
-# 1 only (17 .. 24: ticks the leader delivers before its kill at 21, the rest
-# spliced or served after the promotion; 22 .. 39 and a kill at 25 at 40
-# ticks). 8 x 32,768 = 262,144 alert lines; the standby buffers at most two
-# ticks of them (65,536 lines, its cap)
+# 1 only (17 .. 24: ticks the leader delivers before its kill at 21, the
+# rest spliced or served after the promotion; 22 .. 39 and a kill at 25 at
+# 40 ticks). 8 x 32,768 = 262,144 alert lines; the standby buffers at most
+# two ticks of them (65,536 lines, its cap)
 FAILOVER_DEBOUNCE = 18
 # the leader dies this long after its journal append of the kill tick: its
 # replication sender has shipped the record, its next poll is ~1 s away
 FAILOVER_KILL_DELAY_S = 0.3
+# the leader's save round at tick 19: its ~9 s stall is when the standby,
+# which starts following ~10 ticks behind, catches up with the live edge
+# (without it a slow host's standby had mirrored 21 of the 22 ticks the
+# leader journaled when it died)
+FAILOVER_CHECKPOINT_EVERY = 20
 # (b)'s soak: 32 ticks, cut from 96 to 48 for phase 23 and to 32 for phase
 # 24; one kill (two until phase 24) before the fence round
 FAILOVER_SOAK = dict(seed=3, kills=1, streams=DRILL_STREAMS, group_size=DRILL_GROUP, ticks=32,
@@ -433,17 +473,90 @@ CONTROL_RPCS = 200  # RPC round trips timed against the live plane
 MIGRATION_FIXTURE = "tests/fixtures/migration"
 IMPORT_FIXTURE = "tests/fixtures/torch_import"
 IMPORT_SERVE_CADENCE = 0.1
+# phase 25: serve's scheduling flags at phase 6's shape, SCHED_TICKS ticks:
+# micro-chunks of SCHED_MICRO with staggered boundaries, learning every
+# SCHED_LEARN_EVERY ticks on staggered phases, SCHED_THREADS dispatch
+# threads, a save every SCHED_CHECKPOINT_EVERY ticks; threshold 0 with this
+# debounce makes every stream alert on ticks SCHED_DEBOUNCE - 1 .. 15
+SCHED_TICKS, SCHED_MICRO, SCHED_LEARN_EVERY, SCHED_THREADS = 16, 4, 4, 4
+SCHED_CHECKPOINT_EVERY, SCHED_DEBOUNCE = 8, 13
 PHASE_NAMES = {2: "1-2 card and build", 3: "3 kernel vs plain", 4: "4 slice",
                5: "5 card vs cpu", 6: "6 serve", 7: "7 kill drill", 8: "8 serve model side",
                9: "9 flags on vs off", 10: "10 cascade", 11: "11 nab corpus", 12: "12 golden",
                13: "13 classifier", 14: "14 serve presets", 15: "15 eval", 16: "16 workloads",
                17: "17 node and held-out", 18: "18 report", 19: "19 resilience",
                20: "20 obs cost", 21: "21 binary ingest", 22: "22 replication",
-               23: "23 control plane", 24: "24 imports"}
+               23: "23 control plane", 24: "24 imports", 25: "25 scheduling flags"}
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def part(name: str, seconds: float, **kw) -> None:
+    """One measured part of the running phase (a child's start, a CPU
+    reference run, a soak, ...) on a line of its own."""
+    emit("part", name=f"{DEADLINE.running}: {name}", seconds=round(seconds, 3), **kw)
+
+
+class timed_part:
+    """``with timed_part(name):`` prints the block's seconds as a part line."""
+
+    def __init__(self, name: str, **kw):
+        self.name, self.kw = name, kw
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        part(self.name, time.perf_counter() - self.t0, **self.kw)
+        return False
+
+
+HOST_CALIBRATION_REPS = 200  # plain TM passes of the host line's CPU workload
+
+
+def host_line() -> dict:
+    """What the run's host is: cores (all and this process's), CPU model,
+    load, torch's threads, memory, and the seconds of one fixed seeded CPU
+    workload (the plain TM learning pass on a 16-stream cluster state, a
+    second speed marker independent of the phases' own code paths)."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.config import cluster_preset
+
+    def proc_field(path: str, key: str) -> str | None:
+        try:
+            with open(path) as f:
+                for line in f:
+                    if line.startswith(key):
+                        return line.split(":", 1)[1].strip()
+        except OSError:
+            pass
+        return None
+
+    lp = learned_state(cluster_preset(), 16, 8, 0, device="cpu")
+    snap = [t.clone() for t in lp.args[:2]]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # one core's speed, whatever the host's count
+    try:
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALIBRATION_REPS):
+            lp.args[0].copy_(snap[0])
+            lp.args[1].copy_(snap[1])
+            tl.tm_learn_plain(*lp.args, lp.consts, lp.K, lp.N)
+        calib = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    row = dict(cpu_count=os.cpu_count(), affinity=len(os.sched_getaffinity(0)),
+               cpu_model=proc_field("/proc/cpuinfo", "model name"),
+               loadavg=list(os.getloadavg()), torch_threads=threads,
+               mem_total=proc_field("/proc/meminfo", "MemTotal"),
+               calibration=f"tm_learn_plain x {HOST_CALIBRATION_REPS}, cluster_preset G = 16 "
+                           "after 8 learning ticks, CPU, one thread",
+               calibration_s=round(calib, 4))
+    emit("host", **row)
+    return row
 
 
 DEADLINE_S = 1140.0  # the whole run's default deadline, seconds from T_START
@@ -615,11 +728,11 @@ def pass_ops(args, Ac: int, N: int) -> int:
     return G * R * M * 2 * Ac + int((grow_rows * valid_winners).sum()) * M
 
 
-def learned_state(cfg, G: int, ticks: int, seed: int):
+def learned_state(cfg, G: int, ticks: int, seed: int, device: str = "cuda"):
     """The next tick's learning pass for a [G, ...] state after `ticks`
     real learning ticks on synthetic cluster data (fused cpu/mem/net nodes
     for a multivariate node config; a composite config reads one wire value
-    per stream, as serve feeds it)."""
+    per stream, as serve feeds it), on `device`."""
     from rtap_tpu_torch.data.synthetic import SyntheticStreamConfig, cluster_streams, generate_node
     from rtap_tpu_torch.models.state import init_state
     from rtap_tpu_torch.ops.step import chunk_step, next_learn_pass, replicate_state_device
@@ -632,9 +745,9 @@ def learned_state(cfg, G: int, ticks: int, seed: int):
                                      noise_scale=0.5)
         streams = [generate_node(f"node{i:05d}", scfg, seed=seed + i) for i in range(G)]
         values = np.stack([s.values for s in streams], 1)
-    vals = torch.from_numpy(values).cuda()
-    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).cuda()
-    st = replicate_state_device(init_state(cfg, seed), G, "cuda")
+    vals = torch.from_numpy(values).to(device)
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32)).to(device)
+    st = replicate_state_device(init_state(cfg, seed), G, device)
     st, _ = chunk_step(st, vals[:ticks], ts[:ticks], cfg)
     return next_learn_pass(cfg, st, vals[ticks], ts[ticks])
 
@@ -796,7 +909,7 @@ def phase_slice(G: int, T: int, seed: int, card):
     row = compare_pass("cluster_u16_main_path", lp, kernel_reps=10, plain_reps=2)
     row.update(card=card)
     emit("kernel_vs_plain", **row)
-    return launches, row
+    return launches, row, streams
 
 
 def phase_card_vs_cpu(seed: int, G: int = 8, T: int = 64) -> None:
@@ -864,7 +977,8 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
                  group: int = SERVE_GROUP, n_ticks: int = SERVE_TICKS,
                  scrape=None, transport: str = "jsonl", cadence: float = 1.0,
                  start: int = 0, kill_at: int | None = None,
-                 frames_out: list | None = None, presend: list | None = None) -> tuple:
+                 frames_out: list | None = None, presend: list | None = None,
+                 on_last_fed=None) -> tuple:
     """`python -m rtap_tpu_torch serve` on cuda over `ids` (groups of
     `group`, depth 2, `cadence` s, `n_ticks` ticks, alerts and the journal
     in `work`, plus `extra` flags), fed by this process: ``ticks[t]`` (what
@@ -879,7 +993,10 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
     `scrape` = (tick, fn, out dict): once the child journals that tick,
     ``out.update(fn(obs port))`` (the child runs with --obs-port 0).
     `presend` (JSONL): records sent as soon as the child listens, which its
-    first tick polls (it restores its checkpoints before that poll)."""
+    first tick polls (it restores its checkpoints before that poll).
+    `on_last_fed()` runs once the last tick is fed, while the child serves
+    it and exits (work of this process that needs none of the child's
+    outputs)."""
     from rtap_tpu_torch.ingest import BinaryFeedConnection
     from rtap_tpu_torch.ingest.protocol import data_frame
     from rtap_tpu_torch.resilience.journal import last_journal_tick
@@ -895,8 +1012,10 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
            "--ticks", str(n_ticks), *(["--ingest-port", "0"] if binary else ["--port", "0"]),
            "--alerts", os.path.join(work, "alerts.jsonl"), "--journal-dir", journal_dir, *extra]
     listen = "listening for binary batch frames on" if binary else "listening for JSONL records on"
+    t_spawn = time.perf_counter()
     proc = spawn_child(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    what = dict(streams=len(ids), ticks=n_ticks, start=start, transport=transport)
     err_lines: list[str] = []
     port: list[int] = []
     obs_port: list[int] = []
@@ -919,6 +1038,8 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
         if not port:
             raise AssertionError(f"serve never listened (rc {proc.poll()}):\n"
                                  + "".join(err_lines)[-3000:])
+        t_listen = time.perf_counter()
+        part("serve child start to listening", t_listen - t_spawn, **what)
         if binary:
             conn = BinaryFeedConnection(("127.0.0.1", port[0]), timeout_s=60.0)
             codes = np.array([conn.code_of[sid] for sid in ids], np.uint32)
@@ -943,6 +1064,7 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
             if kill_at is not None and t >= kill_at:
                 proc.send_signal(signal.SIGKILL)  # no cleanup, no flush
                 proc.wait()
+                part("serve child ticks until the kill", time.perf_counter() - t_listen, **what)
                 return None, sent, "".join(err_lines)
             if binary:
                 conn.poll_map()  # a producer adopts pushed maps before each send
@@ -956,7 +1078,12 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
                 sent += send_jsonl(("127.0.0.1", port[0]), ticks[t])
             if scrape is not None and t == scrape[0]:
                 scrape[2].update(scrape[1](obs_port[0]))
+        t_fed = time.perf_counter()
+        part("serve child ticks (fed)", t_fed - t_listen, **what)
+        if on_last_fed is not None:
+            on_last_fed()
         out, _ = proc.communicate(timeout=DEADLINE.cap(600))
+        part("serve child last tick to exit", time.perf_counter() - t_fed, **what)
         if proc.returncode != 0:
             raise AssertionError(f"serve exited {proc.returncode}:\n"
                                  + "".join(err_lines)[-3000:])
@@ -967,7 +1094,22 @@ def _serve_child(ids: list[str], ticks: list, work: str, extra: list[str],
             proc.kill()
             proc.wait()
         reader.join(timeout=DEADLINE.cap(10))
-    return json.loads(out.strip().splitlines()[-1]), sent, "".join(err_lines)
+    stats = json.loads(out.strip().splitlines()[-1])
+    _child_parts(stats, **what)
+    return stats, sent, "".join(err_lines)
+
+
+def _child_parts(stats: dict, **what) -> None:
+    """A serve child's own start-up seconds from its stats line: the
+    registry's build, the warm-up before tick 0, its checkpoint saves."""
+    for key, name, scale in (("registry_build_s", "serve child registry build", 1.0),
+                             ("aot_warmup_s", "serve child warm-up before tick 0", 1.0),
+                             ("tick0_ms", "serve child tick 0", 1e-3)):
+        if stats.get(key) is not None:
+            part(name, stats[key] * scale, **what)
+    if stats.get("group_save_s_mean") is not None:
+        part("serve child group save (mean)", stats["group_save_s_mean"],
+             saves=stats.get("checkpoints_saved"), **what)
 
 
 def _missed_ticks(alerts_path: str) -> list[tuple[int, float]]:
@@ -983,16 +1125,22 @@ def _missed_ticks(alerts_path: str) -> list[tuple[int, float]]:
 
 
 def _serve_feed(seed: int, ts0: int | None = None, n_streams: int = SERVE_STREAMS,
-                n_ticks: int = SERVE_TICKS, value=float):
+                n_ticks: int = SERVE_TICKS, value=float, streams=None):
     """Seeded synthetic cluster values for `n_streams` streams -> (their
     stream ids, one record list per fed tick 1..n_ticks-1, seconds).
     `ts0` re-anchors the timestamps (tick 0 at ts0); `value` maps each
-    synthetic value to the wire value."""
+    synthetic value to the wire value. `streams`: already generated
+    cluster streams to take the first ticks of (phase 4's, whose faults
+    start a quarter into its replay), instead of generating them."""
     from rtap_tpu_torch.data.synthetic import cluster_streams
 
     t0 = time.perf_counter()
     # tick 0 polls before anything is sent; ticks 1.. get one fed tick each
-    streams = cluster_streams(n_streams, n_ticks - 1, seed, n_anomalies=0)
+    if streams is None or len(streams) < n_streams or len(streams[0].values) < n_ticks - 1 \
+            or any(s.events and s.events[0].onset <= int(s.timestamps[n_ticks - 2])
+                   for s in streams[:n_streams]):
+        streams = cluster_streams(n_streams, n_ticks - 1, seed, n_anomalies=0)
+    streams = streams[:n_streams]
     ids = [s.stream_id for s in streams]
     shift = 0 if ts0 is None else ts0 + 1 - int(streams[0].timestamps[0])
     ticks = [[{"id": sid, "value": value(s.values[t]), "ts": int(s.timestamps[t]) + shift}
@@ -1000,18 +1148,18 @@ def _serve_feed(seed: int, ts0: int | None = None, n_streams: int = SERVE_STREAM
     return ids, ticks, time.perf_counter() - t0
 
 
-def phase_serve(seed: int, card: str) -> dict:
+def phase_serve(seed: int, card: str, streams=None) -> dict:
     """`python -m rtap_tpu_torch serve` at full width in a child process,
-    fed over TCP by this process in step with the child's ticks; checks
-    its stats line."""
+    fed over TCP by this process in step with the child's ticks (the first
+    fault-free ticks of phase 4's `streams`); checks its stats line."""
     work = tempfile.mkdtemp(prefix="rtap-serve-")
-    ids, ticks, gen_s = _serve_feed(seed)
+    ids, ticks, gen_s = _serve_feed(seed, streams=streams)
     parse_rate = {"python": parse_capacity(ticks[0], ids, native=False),
                   "native": parse_capacity(ticks[0], ids)}
     ck_dir = os.path.join(work, "ck")
     try:
-        stats, sent, _ = _serve_child(ids, ticks, work, [
-            "--checkpoint-dir", ck_dir, "--checkpoint-every", str(SERVE_CHECKPOINT_EVERY)])
+        # the checkpoint round on exit (phase 25 saves in the loop)
+        stats, sent, _ = _serve_child(ids, ticks, work, ["--checkpoint-dir", ck_dir])
         ck_bytes = _tree_bytes(ck_dir)
         missed = _missed_ticks(os.path.join(work, "alerts.jsonl"))
         # the final state phase 22(a)'s failover must reproduce; its alert
@@ -1024,9 +1172,8 @@ def phase_serve(seed: int, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     tel = _telemetry(stats)
     groups = SERVE_STREAMS // SERVE_GROUP
-    # tick k saves when k + 1 is a multiple of SERVE_CHECKPOINT_EVERY (19, 39
-    # at 40 ticks) or on the exit (after tick 24 at 25 ticks)
-    save_ticks = {k for k in range(SERVE_TICKS) if (k + 1) % SERVE_CHECKPOINT_EVERY == 0}
+    # the one save round follows the last tick: no tick saves
+    save_ticks: set = set()
     checks = {
         "ticks": stats["ticks"] == SERVE_TICKS,
         "scored": stats["scored"] == SERVE_TICKS * SERVE_STREAMS,
@@ -1040,8 +1187,8 @@ def phase_serve(seed: int, card: str) -> dict:
         # the listener parsed with the native C parser, not Python
         "native_active": stats["native_active"] is True,
         "tm_overflow_total": stats["tm_overflow_total"] == 0,
-        # the round at SERVE_CHECKPOINT_EVERY and the final save on exit
-        "checkpoints_saved": stats.get("checkpoints_saved") == 2,
+        # the final save on exit
+        "checkpoints_saved": stats.get("checkpoints_saved") == 1,
         # the source syncs its ingest tallies into the registry at each poll,
         # and the last record is parsed before the last poll
         "telemetry": (tel["rtap_obs_ticks_total"], tel["rtap_obs_scored_total"],
@@ -1049,10 +1196,14 @@ def phase_serve(seed: int, card: str) -> dict:
                      == (stats["ticks"], stats["scored"], stats["records_parsed"]),
         # the child's own launch count, from 0 in that fresh process
         "kernel_launches": stats["kernel_launches"]["tm_learn"] == groups * SERVE_TICKS,
-        # only tick 0 (module loading, first allocations) and the save ticks
-        # may miss the 1 s deadline; the stats' count agrees with the events
-        "missed_ticks": all(t == 0 or t in save_ticks for t, _ in missed)
+        # only the save ticks may miss the 1 s deadline: the warm-up (on by
+        # default) loads the modules and makes the first allocations before
+        # tick 0; the stats' count agrees with the events
+        "missed_ticks": all(t in save_ticks for t, _ in missed)
                         and len(missed) == stats["missed_deadlines"],
+        "tick0_deadline": stats["tick0_ms"] < 1000.0,
+        "warm_up": stats["aot_programs_compiled"] == 1
+                   and stats["cold_compiles_after_warmup"] == 0,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -1068,8 +1219,10 @@ def phase_serve(seed: int, card: str) -> dict:
                latency_p99_ms=stats["latency_p99_ms"], latency_max_ms=stats["latency_max_ms"],
                missed_deadlines=stats["missed_deadlines"], missed_ticks=missed,
                missed_tick_phase_ms=stats["missed_tick_phase_ms"], save_ticks=sorted(save_ticks),
+               tick0_ms=stats["tick0_ms"], aot_warmup_s=stats["aot_warmup_s"],
+               aot_programs_compiled=stats["aot_programs_compiled"],
+               aot_kernel_launches=stats["aot_kernel_launches"],
                phase_ms_per_tick=stats["phase_ms_per_tick"],
-               checkpoint_every=SERVE_CHECKPOINT_EVERY,
                checkpoints_saved=stats["checkpoints_saved"],
                group_save_s_mean=stats["group_save_s_mean"], checkpoint_bytes=ck_bytes,
                journal_append_ms_per_tick=stats["journal"]["append_ms_per_tick"],
@@ -1138,14 +1291,17 @@ def phase_serve_model_side(seed: int, card: str, serve_row: dict) -> dict:
     from rtap_tpu_torch.obs import validate_bundle
 
     work = tempfile.mkdtemp(prefix="rtap-serve-ms-")
-    # anchored at wall-clock time plus a margin: a fed ts in the past would
-    # be clamped up to the wall clock and freeze the correlation clock
-    ids, ticks, gen_s = _serve_feed(seed, ts0=int(time.time()) + 3600,
-                                    n_ticks=MODEL_SIDE_TICKS)
-    ids = service_ids(ids)
-    for records in ticks:
-        for r, sid in zip(records, ids):
-            r["id"] = sid
+    # phase 6's seeded values (its first MODEL_SIDE_TICKS - 1 fed ticks) under
+    # service ids, the timestamps anchored at wall-clock time plus a margin:
+    # a fed ts in the past would be clamped up to the wall clock and freeze
+    # the correlation clock
+    t_feed = time.perf_counter()
+    ids6, ticks6 = serve_row["feed"]
+    ids = service_ids(ids6)
+    shift = int(time.time()) + 3600 + 1 - int(ticks6[0][0]["ts"])
+    ticks = [[{"id": sid, "value": r["value"], "ts": r["ts"] + shift}
+              for r, sid in zip(records, ids)] for records in ticks6[:MODEL_SIDE_TICKS - 1]]
+    gen_s = time.perf_counter() - t_feed
     trace_path, pm_dir = os.path.join(work, "trace.json"), os.path.join(work, "pm")
     scraped: dict = {}
     try:
@@ -1271,11 +1427,15 @@ def run_drill_child(args) -> int:
     replay, then run the rest of the DRILL_TICKS budget over a seeded
     source keyed by the global tick, one stream spiking each tick."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    return _drill_life(args.workdir, args.seed)
+
+
+def _drill_life(workdir: str, seed: int) -> int:
     from rtap_tpu_torch import chaos_soak
 
     # threshold 0: every stream alerts every tick, so exactly-once is
     # checked on every (stream, tick)
-    return chaos_soak.main(["--child", "--workdir", args.workdir, "--seed", str(args.seed),
+    return chaos_soak.main(["--child", "--workdir", workdir, "--seed", str(seed),
                             "--streams", str(DRILL_STREAMS), "--group-size", str(DRILL_GROUP),
                             "--ticks", str(DRILL_TICKS), "--cadence", "0",
                             "--checkpoint-every", str(DRILL_CHECKPOINT_EVERY),
@@ -1344,17 +1504,27 @@ def _kill_drill(root: str, children: list, seed: int, card: str) -> dict:
                               stderr=subprocess.PIPE, text=True))
         return children[-1]
 
+    import contextlib
+    import io
+
     t0 = time.perf_counter()
     ref, crash = os.path.join(root, "ref"), os.path.join(root, "crash")
-    p = child(ref)
-    out, err = p.communicate(timeout=DEADLINE.cap(900))
-    if p.returncode != 0:
-        raise AssertionError(f"fault-free drill child exited {p.returncode}:\n{err[-3000:]}")
-    ref_stats = json.loads(out.strip().splitlines()[-1])
+    # the fault-free life in this process (the same journaled child's code;
+    # only the killed lives need a process of their own)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _drill_life(ref, seed)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"fault-free drill life returned {rc}")
+    ref_stats = json.loads(buf.getvalue().strip().splitlines()[-1])
     ref_s = time.perf_counter() - t0
+    part("fault-free life (in this process)", ref_s)
+    torch.cuda.empty_cache()
     kills, lives = [], []
     targets = list(DRILL_KILLS)
     while True:
+        t_life = time.perf_counter()
         p = child(crash)
         kill = None
         if targets:
@@ -1369,6 +1539,7 @@ def _kill_drill(root: str, children: list, seed: int, card: str) -> dict:
                 time.sleep(0.005)
         out, err = p.communicate(timeout=DEADLINE.cap(900))
         lives.append(p.returncode)
+        part("killed life" if kill is not None else "resumed life", time.perf_counter() - t_life)
         if kill is not None:
             kill["rc"] = p.returncode
             kills.append(kill)
@@ -1623,18 +1794,28 @@ def phase_cascade(card: str) -> dict:
                            stderr=subprocess.PIPE, text=True))
         return procs[-1]
 
-    def finish(p, ok=(0,)):
-        out, err = p.communicate(timeout=DEADLINE.cap(900))
-        if p.returncode not in ok:
-            raise AssertionError(f"predict_eval exited {p.returncode}:\n{err[-3000:]}")
-        return json.loads(out.strip().splitlines()[-1]) if out.strip() else None
+    def here(tag, *argv):
+        """predict_eval's main in this process -> its result line."""
+        import contextlib
+        import io
+
+        from rtap_tpu_torch.predict_eval import main as pe_main
+
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = pe_main(list(argv))
+        part(f"predict_eval {tag}", time.perf_counter() - t)
+        if rc != 0:
+            raise AssertionError(f"predict_eval {tag} returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
 
     t0 = time.perf_counter()
     try:
         # one after the other: the CPU run's threads would slow the card run's host
-        card_res = finish(start(_eval_cmd("cuda")))
+        card_res = here("card", "--device", "cuda")
         cuda_s = time.perf_counter() - t0
-        cpu_res = finish(start(_eval_cmd("cpu")))
+        cpu_res = here("cpu", "--device", "cpu")
         score, cpu_score = card_res["score"], cpu_res["score"]
         checks = {
             "verified": card_res["verified"] and score["win"] and score["blast_covered"]
@@ -1653,6 +1834,7 @@ def phase_cascade(card: str) -> dict:
         wd = os.path.join(work, "w")
         alerts = os.path.join(wd, "alerts.jsonl")
         cmd = _eval_cmd("cuda", "--workdir", wd, "--cadence", "0.02")
+        t_kill = time.perf_counter()
         p = start(cmd)
         kill, seen, pos = None, "", 0
         deadline = time.monotonic() + DEADLINE.cap(600)
@@ -1672,7 +1854,8 @@ def phase_cascade(card: str) -> dict:
         if kill is None:
             raise AssertionError(f"the first precursor never reached the stream (rc {p.returncode})")
         kill["rc"] = p.returncode
-        final = finish(start(cmd))
+        part("predict_eval killed child", time.perf_counter() - t_kill)
+        final = here("resumed", *cmd[3:])
         ids = _event_ids(alerts)
         dup = sorted({i for i in ids if ids.count(i) > 1})
         fscore = final["score"]
@@ -1705,14 +1888,14 @@ def phase_cascade(card: str) -> dict:
     return row
 
 def _nab_run(device: str, work: str, tag: str, *extra: str) -> tuple[dict, dict]:
-    """`python -m rtap_tpu_torch nab` on data/nab as a child -> (its report,
-    its per-row detections by key)."""
+    """`python -m rtap_tpu_torch nab` on data/nab (its main, in this
+    process) -> (its report, its per-row detections by key)."""
+    from rtap_tpu_torch.__main__ import main as cli
+
     out, det = os.path.join(work, f"{tag}.json"), os.path.join(work, f"{tag}.npz")
-    cmd = [sys.executable, "-m", "rtap_tpu_torch", "nab", "--device", device,
-           "--out", out, "--detections", det, *extra]
-    p = run_child(cmd, timeout=1200, cwd=os.path.dirname(os.path.abspath(__file__)))
-    if p.returncode != 0:
-        raise AssertionError(f"nab {tag} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    secs, _ = _in_process(cli, ["nab", "--device", device, "--out", out, "--detections", det,
+                                *extra])
+    part(f"nab {tag}", secs, device=device)
     with open(out) as f:
         rep = json.load(f)
     with np.load(det) as z:
@@ -1756,7 +1939,8 @@ def phase_nab_corpus(card: str) -> tuple[dict, dict]:
         ts = torch.from_numpy(np.array([f.timestamps[-1] + 300 for f in files], np.int32)).cuda()
         lp = next_learn_pass(grp.cfg, grp.state, values, ts)
         del grp
-        krow = compare_pass("nab_corpus_group_final", lp, kernel_reps=20, plain_reps=3)
+        with timed_part("kernel vs plain on the final state"):
+            krow = compare_pass("nab_corpus_group_final", lp, kernel_reps=20, plain_reps=3)
         krow.update(learning_ticks_before=NAB_ROWS, card=card)
         emit("kernel_vs_plain", **krow)
         del lp
@@ -1866,7 +2050,7 @@ def phase_golden(card: str) -> dict:
 
 
 def phase_classifier(seed: int, card: str) -> dict:
-    """cluster_preset with the SDR classifier at G = 64 over 64 learning
+    """cluster_preset with the SDR classifier at G = 64 over CLS_TICKS learning
     ticks on the card and on the CPU: raw, every other leaf and cls_cnt bit
     for bit, cls_w at rtol 1e-5 / atol 1e-6, predictions and probabilities
     within 1e-4."""
@@ -2063,6 +2247,7 @@ def phase_eval(card: str, work: str) -> dict:
         out = os.path.join(work, f"eval_{tag}.json")
         secs, launches = _in_process(cli, ["eval", "--device", device, "--streams", str(streams),
                                            "--length", str(length), "--out", out, *flags])
+        part(f"eval {tag}", secs, device=device, streams=streams, length=length)
         with open(out) as f:
             return json.load(f), secs, launches, out
 
@@ -2145,6 +2330,7 @@ def phase_eval(card: str, work: str) -> dict:
                                              6.0, eval_config(likelihood="streaming"), 11,
                                              "diurnal"))
     gen_s = time.perf_counter() - t0
+    part("eval 1k generator's event count (host)", gen_s)
     torch.cuda.reset_peak_memory_stats()
     rep, secs, launches, _ = run("1k", streams, length)
     peak = torch.cuda.max_memory_allocated()
@@ -2185,6 +2371,7 @@ def phase_workloads(card: str, work: str) -> dict:
     secs, launches = _in_process(we.main, ["--device", "cuda", "--streams", str(streams),
                                            "--length", str(length), "--seed", str(seed),
                                            "--out", out])
+    part("workload_eval", secs, streams=streams, length=length)
     with open(out) as f:
         rep = json.load(f)
     with open(os.path.join(here, "reports", "workloads_r09.json")) as f:
@@ -2203,8 +2390,11 @@ def phase_workloads(card: str, work: str) -> dict:
 
     port, oracle = best(rep), best(ref)
     t0 = time.perf_counter()
-    runs = {dev: we.run_log_template_eval(n_streams=4, length=length, device=dev, seed=seed)
-            for dev in ("cuda", "cpu")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with timed_part("log template eval", device=dev, streams=4, length=length):
+            runs[dev] = we.run_log_template_eval(n_streams=4, length=length, device=dev,
+                                                 seed=seed)
     if _strip_wall_clock(runs["cuda"]) != _strip_wall_clock(runs["cpu"]):
         raise AssertionError(f"log template card vs CPU differ: {runs['cuda']['at_best']} vs "
                              f"{runs['cpu']['at_best']}")
@@ -2235,6 +2425,7 @@ def phase_node_heldout(card: str, work: str) -> dict:
     nodes, length = NODE_SHAPE
     secs, launches = _in_process(node_eval.main, ["--device", "cuda", "--nodes", str(nodes),
                                                   "--length", str(length), "--out", out])
+    part("node_eval", secs, nodes=nodes, length=length)
     with open(out) as f:
         rep = json.load(f)
     with open(os.path.join(here, "reports", "multivariate_node.json")) as f:
@@ -2245,7 +2436,10 @@ def phase_node_heldout(card: str, work: str) -> dict:
         raise AssertionError(f"node eval: events {events} vs {ref_events}, launches {launches}")
     n_cpu, t_cpu = NODE_CPU
     t0 = time.perf_counter()
-    small = {dev: node_eval.run_node_eval(n_cpu, t_cpu, device=dev) for dev in ("cuda", "cpu")}
+    small = {}
+    for dev in ("cuda", "cpu"):
+        with timed_part("node eval card vs CPU", device=dev, nodes=n_cpu, length=t_cpu):
+            small[dev] = node_eval.run_node_eval(n_cpu, t_cpu, device=dev)
     node_cpu_s = time.perf_counter() - t0
     for k in ("raw", "loglik"):
         if not np.array_equal(small["cuda"][k], small["cpu"][k]):
@@ -2262,7 +2456,10 @@ def phase_node_heldout(card: str, work: str) -> dict:
                                              family="heldout"))
     torch.cuda.synchronize()
     h_s, h_launches = time.perf_counter() - t0, tl.launches
-    gen = _event_counts(fault_streams(streams, hlen, ANOMALY_KINDS, mag, cfg, seed, "heldout"))
+    part("held-out cell", h_s, streams=streams, length=hlen)
+    with timed_part("held-out generator's event count (host)"):
+        gen = _event_counts(fault_streams(streams, hlen, ANOMALY_KINDS, mag, cfg, seed,
+                                          "heldout"))
     h_events = {k: v["events"] for k, v in hrep["per_kind"].items()}
     if h_events != gen or h_launches != hlen:
         raise AssertionError(f"held-out cell: events {h_events} vs the generator's {gen}, "
@@ -2335,6 +2532,7 @@ def _chaos_soak(argv: list[str], work: str, tag: str) -> tuple[int, dict, float]
         rc = chaos_soak.main([*argv, "--device", "cuda", "--workdir", os.path.join(work, tag),
                               "--out", out])
     seconds = time.perf_counter() - t0
+    part(f"chaos_soak {tag}", seconds)
     return rc, (json.load(open(out)) if os.path.exists(out) else {}), seconds
 
 
@@ -2667,6 +2865,7 @@ def phase_transports(seed: int, card: str) -> dict:
                 if ring is not None:
                     ring.close()
                 src.close()
+            part(f"transport {name}", time.perf_counter() - t0)
             runs[name] = dict(
                 stats=stats, launches=tl.launches, seconds=time.perf_counter() - t0,
                 lines=[ln for ln in open(path) if not ln.startswith('{"event"')],
@@ -2719,13 +2918,45 @@ def phase_transports(seed: int, card: str) -> dict:
     return row
 
 
+def _binary_kill_reference(work: str, feed: list) -> dict:
+    """21(c)'s uninterrupted run, in this process: the serve child's
+    registry and loop (cluster preset, 2 groups of 1,024, threshold 0,
+    debounce 1, depth 2, checkpoints every 16) over the values its lives
+    are fed, tick 0 polling nothing as theirs does -> the loop's stats."""
+    from rtap_tpu_torch.config import cluster_preset
+    from rtap_tpu_torch.service.loop import live_loop
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(DRILL_STREAMS)]
+    reg = StreamGroupRegistry(cluster_preset(), group_size=DRILL_GROUP, device="cuda",
+                              threshold=0.0, debounce=1)
+    for sid in ids:
+        reg.add_stream(sid)
+    reg.finalize()
+
+    def source(k):
+        if k == 0:
+            return np.full(DRILL_STREAMS, np.nan, np.float32), int(time.time())
+        return feed[k - 1]
+
+    stats = live_loop(source, reg, n_ticks=DRILL_TICKS, cadence_s=0.0,
+                      alert_path=os.path.join(work, "alerts.jsonl"),
+                      checkpoint_dir=os.path.join(work, "ck"),
+                      checkpoint_every=DRILL_CHECKPOINT_EVERY, pipeline_depth=2)
+    torch.cuda.synchronize()
+    del reg
+    torch.cuda.empty_cache()
+    return stats
+
+
 def phase_binary_kill(seed: int, card: str) -> dict:
     """21(c): `serve --ingest-port 0 --journal-dir J --checkpoint-dir C` at
     the drill's shape (2 groups of 1,024, 32 ticks at BINARY_DRILL_CADENCE
     s, checkpoints every 16, threshold 0), fed the drill's seeded ticks by
-    the journal-gated binary feeder: once uninterrupted as the reference,
-    once SIGKILLed when its journal reaches BINARY_KILL_AT and restarted
-    over the same directories, fed on from the restart's resume base."""
+    the journal-gated binary feeder: SIGKILLed when its journal reaches
+    BINARY_KILL_AT and restarted over the same directories, fed on from the
+    restart's resume base; held to the uninterrupted run of the same loop in
+    this process over the same values."""
     from rtap_tpu_torch.resilience.journal import last_journal_tick
 
     root = tempfile.mkdtemp(prefix="rtap-binkill-")
@@ -2749,8 +2980,9 @@ def phase_binary_kill(seed: int, card: str) -> dict:
         ref_dir, crash_dir = os.path.join(root, "ref"), os.path.join(root, "crash")
         os.makedirs(ref_dir)
         os.makedirs(crash_dir)
-        ref_stats, _, _ = life(ref_dir)
+        ref_stats = _binary_kill_reference(ref_dir, feed)
         ref_s = time.perf_counter() - t0
+        part("uninterrupted reference (in this process)", ref_s)
         killed, _, _ = life(crash_dir, kill_at=BINARY_KILL_AT)
         if killed is not None:
             raise AssertionError("the first life was not killed")
@@ -2816,7 +3048,7 @@ def phase_binary_kill(seed: int, card: str) -> dict:
                reference_launches=ref_stats["kernel_launches"]["tm_learn"],
                resumed_launches=last["kernel_launches"]["tm_learn"],
                resumed_learned_group_ticks=last["learned_group_ticks"],
-               journal_append_ms_per_tick=ref_stats["journal"]["append_ms_per_tick"],
+               journal_append_ms_per_tick=last["journal"]["append_ms_per_tick"],
                reference_s=ref_s, resumed_life_s=resumed_s,
                seconds=time.perf_counter() - t0, card=card)
     emit("binary_kill_drill", **row)
@@ -2829,8 +3061,9 @@ def phase_ingest_bench(card: str) -> dict:
     gates fails (binary >= 1M rows/s, >= 5x the native JSONL TCP path)."""
     import platform
 
-    out = run_child([sys.executable, "-m", "rtap_tpu_torch.ingest_bench"], timeout=900,
-                    cwd=os.path.dirname(os.path.abspath(__file__)))
+    with timed_part("ingest_bench child"):
+        out = run_child([sys.executable, "-m", "rtap_tpu_torch.ingest_bench"], timeout=900,
+                        cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
     if not lines:
         raise AssertionError(f"ingest bench printed nothing (rc {out.returncode}):\n"
@@ -2948,14 +3181,14 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
               "@" + os.path.join(work, "ids.txt"), "--device", "cuda",
               "--group-size", str(SERVE_GROUP), "--pipeline-depth", "2", "--cadence", "1",
               "--ticks", str(SERVE_TICKS), "--port", "0", "--alerts", alerts,
-              "--checkpoint-dir", ck, "--checkpoint-every", str(SERVE_CHECKPOINT_EVERY),
+              "--checkpoint-dir", ck, "--checkpoint-every", str(FAILOVER_CHECKPOINT_EVERY),
               "--lease-file", lease, "--lease-timeout", str(FAILOVER_LEASE_TIMEOUT),
               "--threshold", "0", "--debounce", str(FAILOVER_DEBOUNCE)]
     extra = {"leader": ["--journal-dir", journals["leader"], "--replicate-to",
                         f"127.0.0.1:{repl_port}", "--latency", "--obs-port", "0"],
              "standby": ["--journal-dir", journals["standby"], "--standby",
                          "--replicate-listen", str(repl_port)]}
-    procs, err, ports, obs_ports, promoted_at = {}, {}, {}, {}, []
+    procs, err, ports, obs_ports, promoted_at, following = {}, {}, {}, {}, [], []
 
     def spawn(role):
         p = spawn_child(common + extra[role], cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -2972,6 +3205,8 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
                     obs_ports[role] = int(line.rsplit(":", 1)[1].split("/")[0])
                 elif "PROMOTED to leader at tick" in line:
                     promoted_at.append(int(line.split("at tick ")[1].split()[0]))
+                elif "standby following on port" in line:
+                    following.append(time.perf_counter())
         threading.Thread(target=read, daemon=True).start()
         return p
 
@@ -2995,6 +3230,8 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
     t0 = time.perf_counter()
     spawn("leader")
     wait(lambda: os.path.exists(lease), "the leader never took the lease")
+    part("leader start to its lease", time.perf_counter() - t0)
+    t_sb = time.perf_counter()
     spawn("standby")
     gaps: dict = {}
     stop_watch = threading.Event()
@@ -3009,6 +3246,9 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
     scraper = threading.Thread(target=scrape_leader, daemon=True)
     try:
         t = 0
+        wait(lambda: "leader" in ports, "the leader never listened")
+        part("leader start to listening", time.perf_counter() - t0)
+        t_fed = time.perf_counter()
         while t < len(ticks):
             role = "leader" if kill is None else "standby"
             wait(lambda: role in ports, f"the {role} never listened")
@@ -3039,6 +3279,7 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
                 procs["leader"].send_signal(signal.SIGKILL)  # no cleanup, no flush
                 procs["leader"].wait()
                 t_kill = time.perf_counter()
+                part("leader ticks until its kill", t_kill - t_fed)
                 kill = {"journal_tick": journaled - 1, "journaled_ticks": journaled,
                         "after_append_s": t_kill - t_seen, "rc": procs["leader"].returncode,
                         "standby_mirrored": last_journal_tick(journals["standby"]) + 1}
@@ -3046,6 +3287,7 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
                 kill["lease_flip_s"] = time.perf_counter() - t_kill
                 wait(lambda: "standby" in ports, "the promoted standby never listened")
                 kill["listening_s"] = time.perf_counter() - t_kill
+                part("kill to the promoted standby listening", kill["listening_s"])
                 # the promoted leader polls tick promoted_at[0] first: the feed
                 # resumes there (ticks the dead leader got but never shipped
                 # are pushed again)
@@ -3056,7 +3298,10 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
                     and last_journal_tick(journals["standby"]) >= promoted_at[0]:
                 kill["first_served_s"] = time.perf_counter() - t_kill
             t += 1
+        t_last = time.perf_counter()
+        part("kill to the last tick fed", t_last - t_kill)
         out, serr = procs["standby"].communicate(timeout=DEADLINE.cap(600))
+        part("promoted standby last tick to exit", time.perf_counter() - t_last)
         if procs["standby"].returncode != 0:
             raise AssertionError(f"22(a): the promoted standby exited "
                                  f"{procs['standby'].returncode}:\n{serr[-3000:]}")
@@ -3064,6 +3309,11 @@ def _failover_pair(ids: list[str], ticks: list, work: str, children: list) -> di
         stop_watch.set()
         watcher.join(timeout=DEADLINE.cap(5))
     stats = json.loads(out.strip().splitlines()[-1])
+    if following:
+        part("standby start to following", following[0] - t_sb)
+    _child_parts(stats, role="promoted standby")
+    for key, secs in stats["standby"]["takeover"].items():
+        part(f"takeover {key}", secs)
     pids = {r: p.pid for r, p in procs.items()}
     return dict(stats=stats, kill=kill, scrape=scrape, sent=sent, ck=ck, alerts=alerts,
                 lease_gaps={r: gaps.get(f"{os.uname().nodename}:{pid}") for r, pid in pids.items()},
@@ -3114,8 +3364,10 @@ def phase_failover_serve(seed: int, card: str, serve_row: dict) -> dict:
     try:
         ids, ticks = serve_row["feed"]  # phase 6's seeded ticks
         r = _failover_pair(ids, ticks, work, children)
-        digest = _ck_digest(r["ck"])
-        alerts = _spliced_alerts(r["alerts"])
+        with timed_part("final checkpoint digest"):
+            digest = _ck_digest(r["ck"])
+        with timed_part("spliced alert stream read"):
+            alerts = _spliced_alerts(r["alerts"])
         events = alerts["events"]
     finally:
         for p in children:
@@ -3131,7 +3383,7 @@ def phase_failover_serve(seed: int, card: str, serve_row: dict) -> dict:
     leader_missed = [(e["tick"], e["elapsed_s"]) for e in events[:cut] if e["event"] == "missed_tick"]
     served_missed = [(base + e["tick"], e["elapsed_s"]) for e in events[cut:]
                      if e["event"] == "missed_tick"]
-    save_ticks = {k for k in range(SERVE_TICKS) if (k + 1) % SERVE_CHECKPOINT_EVERY == 0}
+    save_ticks = {k for k in range(SERVE_TICKS) if (k + 1) % FAILOVER_CHECKPOINT_EVERY == 0}
     # phase 6's per-leaf digest, but each group's debounce counter, which the
     # threshold defines: at threshold 0 every tick hits, so it ends at
     # SERVE_TICKS for every stream
@@ -3226,12 +3478,14 @@ def phase_failover_soak(card: str, work: str) -> dict:
     an aggregator in the soak's process; its own verdict must be verified."""
     c = FAILOVER_SOAK
     out = os.path.join(work, "failover.json")
+    t_soak = time.perf_counter()
     p = run_child([sys.executable, "-m", "rtap_tpu_torch.failover_soak", "--device", "cuda",
                    "--seed", str(c["seed"]), "--kills", str(c["kills"]),
                    "--streams", str(c["streams"]), "--group-size", str(c["group_size"]),
                    "--ticks", str(c["ticks"]), "--cadence", str(c["cadence"]),
                    "--checkpoint-every", str(c["checkpoint_every"]), "--fleet",
                    "--workdir", os.path.join(work, "failover"), "--out", out], timeout=900)
+    part("failover_soak child", time.perf_counter() - t_soak)
     if p.returncode != 0 or not os.path.exists(out):
         raise AssertionError(f"22(b) failover soak exited {p.returncode}:\n{p.stderr[-3000:]}")
     rep = json.load(open(out))
@@ -3281,11 +3535,13 @@ def phase_replication_chaos(card: str, work: str) -> dict:
     c = REPL_CHAOS
     out = os.path.join(work, "replication.json")
     launches0 = tm_learn.launches
+    t_soak = time.perf_counter()
     rc = chaos_main(["--replication", "--device", "cuda", "--seed", str(c["seed"]),
                      "--streams", str(c["streams"]), "--group-size", str(c["group_size"]),
                      "--ticks", str(c["ticks"]), "--cadence", str(c["cadence"]),
                      "--rate", str(c["rate"]), "--checkpoint-every", str(c["checkpoint_every"]),
                      "--workdir", os.path.join(work, "replication"), "--out", out])
+    part("chaos_soak --replication", time.perf_counter() - t_soak)
     launches = tm_learn.launches - launches0
     rep = json.load(open(out))
     groups = c["streams"] // c["group_size"]
@@ -3336,6 +3592,7 @@ class _Child:
 
     def __init__(self, name: str, argv: list[str], children: list):
         self.name = name
+        self.t0, self.t_ready = time.perf_counter(), None
         self.proc = spawn_child([sys.executable, "-m", "rtap_tpu_torch", "serve", *argv],
                           cwd=os.path.dirname(os.path.abspath(__file__)),
                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -3350,7 +3607,11 @@ class _Child:
             self.err.append(line)
             if "listening for JSONL records on" in line:
                 self.port = int(line.rsplit(":", 1)[1])
+                self.t_ready = self.t_ready or time.perf_counter()
+            elif "standby following on port" in line:
+                self.t_ready = time.perf_counter()
             elif "serve: control plane on" in line:
+                self.t_ready = self.t_ready or time.perf_counter()
                 self.control_port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
                 self.recovered = int(line.split(", ")[1].split()[0])
             elif "PROMOTED to leader at tick" in line:
@@ -3360,6 +3621,8 @@ class _Child:
         # stdout only: the reader thread owns stderr (communicate would race it)
         out = self.proc.stdout.read()
         self.proc.wait(timeout=DEADLINE.cap(timeout))
+        if self.t_ready is not None:
+            part(f"{self.name} start to listening", self.t_ready - self.t0)
         if self.proc.returncode != 0:
             raise AssertionError(f"23: {self.name} exited {self.proc.returncode}:\n"
                                  + "".join(self.err)[-3000:])
@@ -3839,12 +4102,231 @@ def phase_imports(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+def _alert_scores(path: str) -> tuple[dict, int]:
+    """{alert_id: (raw_score, log_likelihood)} of an alert stream's alert
+    lines, and how many ids came twice."""
+    out, dup = {}, 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith('{"event"'):
+                continue
+            rec = json.loads(line)
+            dup += rec["alert_id"] in out
+            out[rec["alert_id"]] = (rec["raw_score"], rec["log_likelihood"])
+    return out, dup
+
+
+def _mem_digest(groups) -> dict:
+    """_ck_digest's per-leaf digest of groups in memory, under the names
+    their save_group files carry."""
+    from rtap_tpu_torch.models.state import state_to_numpy
+
+    out = {}
+    for gi, g in enumerate(groups):
+        base = f"group{gi:04d}/state"
+        out.update({f"{base}/model/{k}.npy": _leaf_digest(np.asarray(v))
+                    for k, v in state_to_numpy(g.state).items()})
+        out.update({f"{base}/likelihood/{k}.npy": _leaf_digest(np.asarray(v))
+                    for k, v in g.likelihood.state_dict().items()})
+        out[f"{base}/alert_run.npy"] = _leaf_digest(np.asarray(g._alert_run))
+        out[f"group{gi:04d}/ticks"] = g.ticks
+    return out
+
+
+def _sched_cfg():
+    from rtap_tpu_torch.config import cluster_preset
+
+    return cluster_preset().with_learn_every(SCHED_LEARN_EVERY, full_until=0)
+
+
+def _sched_source(feed: list, n: int):
+    """live_loop's source for phase 25's reference: tick 0 polls nothing
+    (every value missing, the wall clock's ts, as the child's listener
+    gives), tick t the values and ts of feed[t - 1]."""
+    rows = [(np.array([r["value"] for r in recs], np.float32), int(recs[0]["ts"]))
+            for recs in feed]
+
+    def source(k):
+        if k == 0:
+            return np.full(n, np.nan, np.float32), int(time.time())
+        return rows[k - 1]
+    return source
+
+
+def phase_sched(seed: int, card: str, serve_row: dict) -> dict:
+    """Phase 25: the scheduling flags. `serve` at phase 6's shape with
+    ``--micro-chunk 4 --chunk-stagger --stagger-learn --learn-every 4
+    --learn-full-until 0 --dispatch-threads 4``, the warm-up on (the
+    default), the journal and checkpoints every 8 ticks, threshold 0 with a
+    debounce of SCHED_DEBOUNCE, fed phase 6's ticks; held to the same
+    staggered registry stepped one tick at a time in this process (no
+    chunk stagger, no threads), and group 0 stepped again through the
+    plain TM pass."""
+    import types
+
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.models.state import state_to_numpy
+    from rtap_tpu_torch.service.aot import knowable_programs
+    from rtap_tpu_torch.service.loop import live_loop
+    from rtap_tpu_torch.service.registry import StreamGroupRegistry
+
+    from rtap_tpu_torch.resilience.journal import last_journal_tick
+
+    ids, ticks = serve_row["feed"]  # phase 6's seeded ticks
+    feed = ticks[:SCHED_TICKS - 1]
+    groups = SERVE_STREAMS // SERVE_GROUP
+    cfg = _sched_cfg()
+    work = tempfile.mkdtemp(prefix="rtap-sched-")
+    ref_dir = tempfile.mkdtemp(prefix="rtap-sched-ref-")
+    ck = os.path.join(work, "ck")
+    r: dict = {}
+
+    def reference():
+        """The same staggered registry stepped one tick at a time, serially,
+        then group 0 again through the plain TM pass; run once the child is
+        in its last tick (a save tick), while it serves it and exits."""
+        deadline = DEADLINE.until(120)
+        while last_journal_tick(os.path.join(work, "journal")) < SCHED_TICKS - 1 \
+                and time.time() < deadline:
+            time.sleep(0.01)
+        with timed_part("reference registry build"):
+            reg = StreamGroupRegistry(cfg, group_size=SERVE_GROUP, device="cuda", threshold=0.0,
+                                      debounce=SCHED_DEBOUNCE, stagger_learn=True)
+            for sid in ids:
+                reg.add_stream(sid)
+            reg.finalize()
+        tl.reset_launches()
+        with timed_part("reference run (one tick at a time)"):
+            r["stats"] = live_loop(_sched_source(feed, len(ids)), reg, n_ticks=SCHED_TICKS,
+                                   cadence_s=0.0,
+                                   alert_path=os.path.join(ref_dir, "alerts.jsonl"))
+            torch.cuda.synchronize()
+        r["launches"] = tl.launches
+        with timed_part("reference digest"):
+            r["digest"] = _mem_digest(reg.groups)
+        r["g0_kernel"] = state_to_numpy(reg.groups[0].state)
+        g0_cfg = reg.groups[0].cfg
+        del reg
+        torch.cuda.empty_cache()
+        plain_kernel = tl.tm_learn_kernel
+        tl.tm_learn_kernel = lambda *a: tl.tm_learn_plain(*a)
+        try:
+            with timed_part("group 0 through the plain TM pass"):
+                preg = StreamGroupRegistry(g0_cfg, group_size=SERVE_GROUP, device="cuda",
+                                           threshold=0.0, debounce=SCHED_DEBOUNCE)
+                for sid in ids[:SERVE_GROUP]:
+                    preg.add_stream(sid)
+                preg.finalize()
+                src = _sched_source([recs[:SERVE_GROUP] for recs in feed], SERVE_GROUP)
+                tl.reset_launches()
+                live_loop(src, preg, n_ticks=SCHED_TICKS, cadence_s=0.0)
+                torch.cuda.synchronize()
+                r["plain_launches"] = tl.launches
+                r["g0_plain"] = state_to_numpy(preg.groups[0].state)
+            del preg
+        finally:
+            tl.tm_learn_kernel = plain_kernel
+        torch.cuda.empty_cache()
+
+    try:
+        stats, sent, _ = _serve_child(ids, feed, work, [
+            "--micro-chunk", str(SCHED_MICRO), "--chunk-stagger", "--stagger-learn",
+            "--learn-every", str(SCHED_LEARN_EVERY), "--learn-full-until", "0",
+            "--dispatch-threads", str(SCHED_THREADS), "--checkpoint-dir", ck,
+            "--checkpoint-every", str(SCHED_CHECKPOINT_EVERY), "--threshold", "0",
+            "--debounce", str(SCHED_DEBOUNCE)], n_ticks=SCHED_TICKS, on_last_fed=reference)
+        missed = _missed_ticks(os.path.join(work, "alerts.jsonl"))
+        with timed_part("child checkpoint digest"):
+            child_digest = _ck_digest(ck)
+        with timed_part("alert lines read"):
+            child_alerts, child_dup = _alert_scores(os.path.join(work, "alerts.jsonl"))
+            ref_alerts, ref_dup = _alert_scores(os.path.join(ref_dir, "alerts.jsonl"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    ref, ref_launches, ref_digest = r["stats"], r["launches"], r["digest"]
+    g0_kernel, g0_plain, plain_launches = r["g0_kernel"], r["g0_plain"], r["plain_launches"]
+
+    stand_ins = [types.SimpleNamespace(cfg=dataclasses.replace(
+        cfg, learn_phase=gi % SCHED_LEARN_EVERY)) for gi in range(groups)]
+    want_programs = len(knowable_programs(stand_ins, SCHED_MICRO, True))
+    sched = stats["schedule"]
+    save_ticks = {k for k in range(SCHED_TICKS) if (k + 1) % SCHED_CHECKPOINT_EVERY == 0}
+    per_tick = groups // SCHED_LEARN_EVERY
+    diff = sorted(k for k in ref_digest.keys() | child_digest.keys()
+                  if ref_digest.get(k) != child_digest.get(k))
+    alert_ticks = SCHED_TICKS - SCHED_DEBOUNCE + 1
+    g0_diff = [k for k in g0_kernel if not np.array_equal(
+        g0_kernel[k], g0_plain[k], equal_nan=g0_kernel[k].dtype.kind == "f")]
+    checks = {
+        "ticks": stats["ticks"] == SCHED_TICKS
+                 and stats["scored"] == SCHED_TICKS * SERVE_STREAMS,
+        "missing_values": stats["missing_values"] == SERVE_STREAMS
+                          and sent == (SCHED_TICKS - 1) * SERVE_STREAMS,
+        # (a) the warm-up: only the save ticks miss, every knowable program
+        # warmed, none dispatched cold
+        "missed_ticks": all(t in save_ticks for t, _ in missed)
+                        and len(missed) == stats["missed_deadlines"],
+        "aot_programs": stats["aot_programs_compiled"] == want_programs
+                        == len({c.cfg for c in stand_ins}) * SCHED_MICRO,
+        "cold_compiles": stats["cold_compiles_after_warmup"] == 0,
+        # (b) the schedule changes when, not what
+        "state_digest": not diff and len(child_digest) == len(ref_digest) > groups,
+        "alerts": child_alerts == ref_alerts and not child_dup and not ref_dup
+                  and len(ref_alerts) == alert_ticks * SERVE_STREAMS,
+        # (c) the stagger is real: n_groups / learn_every groups learn on
+        # each tick's row, and each tick launches that many passes; past
+        # the save ticks' realignment each tick dispatches one class
+        "learning_groups": sched["learning_groups"] == [per_tick] * SCHED_TICKS,
+        "launches_per_tick": sched["kernel_launches"] == [per_tick] * SCHED_TICKS,
+        "groups_dispatched": all(n == (groups if k in save_ticks else groups // SCHED_MICRO)
+                                 for k, n in enumerate(sched["groups_dispatched"])),
+        # (d) the kernel on this path
+        "kernel_launches": stats["kernel_launches"]["tm_learn"] == stats["learned_group_ticks"]
+                           == groups * SCHED_TICKS // SCHED_LEARN_EVERY == ref_launches
+                           == ref["learned_group_ticks"],
+        "aot_launches_apart": stats["aot_kernel_launches"] > 0,
+        "plain_pass": not g0_diff and plain_launches == 0,
+        # (e) the effective thread count
+        "dispatch_threads": stats["dispatch_threads"] == SCHED_THREADS,
+        "tm_overflow_total": stats["tm_overflow_total"] == 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"25 scheduling flags failed {bad}: missed {missed}, digest diff "
+                             f"{diff[:8]}, alerts {len(child_alerts)} vs {len(ref_alerts)} "
+                             f"(dup {child_dup}/{ref_dup}), group 0 plain diff {g0_diff[:8]}, "
+                             f"programs want {want_programs}, ref launches {ref_launches}: "
+                             f"{ {k: v for k, v in stats.items() if k != 'telemetry'} }")
+    row = dict(streams=SERVE_STREAMS, groups=groups, group_size=SERVE_GROUP, ticks=stats["ticks"],
+               cadence_s=stats["cadence_s"], pipeline_depth=stats["pipeline_depth"],
+               micro_chunk=stats["micro_chunk"], chunk_stagger=stats["chunk_stagger"],
+               learn_every=SCHED_LEARN_EVERY, dispatch_threads=stats["dispatch_threads"],
+               aot_programs_compiled=stats["aot_programs_compiled"],
+               cold_compiles_after_warmup=stats["cold_compiles_after_warmup"],
+               aot_warmup_s=stats["aot_warmup_s"], aot_kernel_launches=stats["aot_kernel_launches"],
+               tick0_ms=stats["tick0_ms"], missed_ticks=missed, save_ticks=sorted(save_ticks),
+               schedule=sched, phase_ms_per_tick=stats["phase_ms_per_tick"],
+               phase6_phase_ms_per_tick=serve_row["phase_ms_per_tick"],
+               latency_p50_ms=stats["latency_p50_ms"], latency_p99_ms=stats["latency_p99_ms"],
+               latency_max_ms=stats["latency_max_ms"],
+               phase6_latency_p50_ms=serve_row["latency_p50_ms"],
+               kernel_launches=stats["kernel_launches"]["tm_learn"],
+               learned_group_ticks=stats["learned_group_ticks"],
+               reference_launches=ref_launches, leaves_compared=len(child_digest),
+               alert_ids_compared=len(ref_alerts), plain_pass_leaves_equal=len(g0_plain),
+               hbm_peak_bytes_in_use=stats["hbm_peak_bytes_in_use"], card=card)
+    emit("sched_serve", **row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streams", type=int, default=32768)
     ap.add_argument("--ticks", type=int, default=128)
-    ap.add_argument("--warm-ticks", type=int, default=150,
+    ap.add_argument("--warm-ticks", type=int, default=100,
                     help="learning ticks before the kernel-vs-plain comparisons")
     ap.add_argument("--deadline-s", type=float, default=DEADLINE_S,
                     help="the whole run's deadline in seconds from the script's start: "
@@ -3886,6 +4368,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # what the host is, and one fixed CPU workload's seconds, before any phase
+    host_line()
     # 1. the card
     p = run_child(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                   timeout=60)
@@ -3935,7 +4419,7 @@ def main() -> int:
     mark(3)
     rows = {}
     # 4. the slice, then the kernel at the main path's own shape
-    rows["replay"], main_row = phase_slice(args.streams, args.ticks, args.seed, smi)
+    rows["replay"], main_row, streams = phase_slice(args.streams, args.ticks, args.seed, smi)
     cmp_rows.append(main_row)
     mark(4)
     # 5. card vs CPU
@@ -3943,7 +4427,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the children below need the card's memory
     mark(5)
     # 6. serve at full width through the real entry point
-    serve_row = phase_serve(args.seed, smi)
+    serve_row = phase_serve(args.seed, smi, streams)
+    del streams
     rows["serve"] = serve_row["kernel_launches"]
     mark(6)
     # 7. kill -9 drill
@@ -4037,6 +4522,14 @@ def main() -> int:
     cmp_rows += imp["kernel_rows"]
     torch.cuda.empty_cache()
     mark(24)
+    # 25. serve's scheduling flags: stagger, threads and the warm-up at
+    # phase 6's shape, held to the one-tick-at-a-time schedule
+    sched = phase_sched(args.seed, smi, serve_row)
+    rows["sched_serve"] = sched["kernel_launches"]
+    rows["sched_serve_warm_up"] = sched["aot_kernel_launches"]
+    rows["sched_reference"] = sched["reference_launches"]
+    torch.cuda.empty_cache()
+    mark(25)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,

@@ -16,13 +16,14 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing card raises instead of falling back.
 """
 
-import torch
-
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Raises when CUDA was asked for (or defaulted to) and there is
     no card — the port never falls back to the CPU on its own."""
+    # torch is imported here, not with the package: a process that needs no
+    # tensor (the --control-only plane) starts without paying its import
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -24,11 +24,12 @@ binary ingest flags (--ingest-port, --ingest-shm, --ingest-quota,
 --ingest-backfill-horizon), hot-standby replication under a leadership
 lease (--replicate-to, --replicate-listen, --standby, --lease-file,
 --lease-timeout), the fleet observability plane (--fleet-join,
---fleet-listen, --fleet-push-interval) and the fleet control plane with its
+--fleet-listen, --fleet-push-interval), the fleet control plane with its
 shards (--control-listen, --control-journal, --control-only,
---control-join, --control-grace, --shard); every JAX serve flag this
-package does not port yet exits 2 naming it and the queue item that ports
-it (:data:`UNPORTED_SERVE_FLAGS`), so nothing is silently ignored.
+--control-join, --control-grace, --shard) and the scheduling flags
+(--dispatch-threads, --chunk-stagger, --stagger-learn, --aot-warmup, on by
+default); the two JAX serve flags with no meaning here exit 2 naming them
+(:data:`UNPORTED_SERVE_FLAGS`), so nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -43,13 +44,10 @@ import time
 
 from rtap_tpu_torch.eval.report import add_report_flags
 
-#: JAX-package serve flags not ported yet -> (takes a value, why: the
-#: ROADMAP.md queue item that ports it, or the flag that replaces it). Each
-#: is parsed (hidden) so that giving it exits 2 with its name instead of
-#: argparse's generic error.
+#: JAX-package serve flags the port does not take -> (takes a value, why:
+#: the flag that replaces it). Each is parsed (hidden) so that giving it
+#: exits 2 with its name instead of argparse's generic error.
 UNPORTED_SERVE_FLAGS = {
-    **dict.fromkeys(("--chunk-stagger", "--stagger-learn", "--aot-warmup"),
-                    (False, "the scheduling flags; ROADMAP.md queue A, M7")),
     # an XLA device trace has no meaning here
     "--jax-trace": (True, "it traces XLA programs; the port's device profiler is "
                           "python -m rtap_tpu_torch.profile_tick"),
@@ -91,12 +89,7 @@ def _refused_serve_flag(args: argparse.Namespace) -> str | None:
         v = getattr(args, "unported_" + flag[2:].replace("-", "_"))
         if v is None or v is False:
             continue
-        if "ROADMAP.md" in why:  # queued for a later slice
-            return f"{flag} is not ported to rtap_tpu_torch yet ({why})"
         return f"{flag} is not ported to rtap_tpu_torch: {why}"
-    if args.dispatch_threads != 1:
-        return (f"--dispatch-threads {args.dispatch_threads} is not ported to "
-                "rtap_tpu_torch yet (the scheduling flags; ROADMAP.md queue A, M7)")
     return None
 
 
@@ -535,12 +528,15 @@ def _serve_data_plane(args: argparse.Namespace) -> int:
         return 2
     # built before any listener: without a card (and without --device cpu)
     # this raises, and nothing is left to clean up
+    t_reg = time.perf_counter()
     reg = StreamGroupRegistry(cfg, group_size=gsize, device=args.device,
                               threshold=args.threshold, debounce=args.debounce,
-                              health=args.health, predict=predict_k)
+                              health=args.health, predict=predict_k,
+                              stagger_learn=args.stagger_learn)
     for sid in ids:
         reg.add_stream(sid)
     reg.finalize(reserve=reserve)
+    registry_build_s = time.perf_counter() - t_reg
     # the write-ahead journal: constructing it recovers (torn tails
     # truncated, rows loaded for replay); with it, --ticks is the run's
     # TOTAL budget across restarts
@@ -760,13 +756,15 @@ def _serve_data_plane(args: argparse.Namespace) -> int:
             stats = live_loop(source, reg, n_ticks=n_ticks, cadence_s=args.cadence,
                               alert_path=args.alerts, checkpoint_dir=args.checkpoint_dir,
                               checkpoint_every=args.checkpoint_every, stop_event=stop,
-                              pipeline_depth=args.pipeline_depth, learn=not args.freeze,
+                              pipeline_depth=args.pipeline_depth,
+                              dispatch_threads=args.dispatch_threads, learn=not args.freeze,
                               auto_register=args.auto_register,
                               auto_release_after=args.auto_release_after,
-                              micro_chunk=args.micro_chunk, chaos=chaos,
-                              degradation=degradation,
+                              micro_chunk=args.micro_chunk, chunk_stagger=args.chunk_stagger,
+                              chaos=chaos, degradation=degradation,
                               quarantine_restore_after=args.quarantine_restore_after,
-                              alert_flush_every=args.alert_flush_every, trace=trace,
+                              alert_flush_every=args.alert_flush_every,
+                              aot_warmup=args.aot_warmup, trace=trace,
                               flight=flight, attributor=attributor, journal=journal,
                               health=health, correlator=correlator, latency=latency,
                               slo=slo, predictor=predictor, lease=lease,
@@ -848,6 +846,7 @@ def _serve_data_plane(args: argparse.Namespace) -> int:
             stats[attr] = v
     stats["device"] = str(reg.device)
     stats["preset"] = args.preset
+    stats["registry_build_s"] = round(registry_build_s, 4)
     if sender is not None:
         stats["replication"] = sender.stats()
     if follower is not None:
@@ -1201,13 +1200,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--journal-max-segments", type=int, default=256)
     p.add_argument("--learn-full-until", type=int, default=None,
                    help="ticks of full-rate learning before the cadence thins "
-                        "(default: the likelihood learning_period)")
+                        "(default: the likelihood learning_period). 0 measures the "
+                        "mature steady state")
+    p.add_argument("--chunk-stagger", action="store_true",
+                   help="with --micro-chunk M: rotate chunk boundaries across groups "
+                        "(group i flushes at ticks == i mod M) so each tick dispatches "
+                        "~1/M of the fleet instead of the whole fleet's chunk work on "
+                        "every M-th tick. Elastic membership and periodic checkpoints "
+                        "force a one-tick boundary realignment when they fire")
+    p.add_argument("--stagger-learn", action="store_true",
+                   help="stagger the learning-cadence phase across groups (group i "
+                        "learns on ticks == i mod k): spreads the fleet's learning load "
+                        "evenly over ticks instead of spiking every k-th tick")
     p.add_argument("--pipeline-depth", type=int, default=1,
                    help="2 = collect tick k after dispatching k+1 (alerts lag one tick)")
     p.add_argument("--micro-chunk", type=int, default=1,
-                   help="batch M consecutive ticks into one dispatch per group")
+                   help="batch M consecutive ticks into one dispatch per group, at <= "
+                        "(depth*M - 1) ticks of alert staleness")
     p.add_argument("--dispatch-threads", type=int, default=1,
-                   help="only 1 is ported (serial dispatch)")
+                   help="issue per-group dispatch/collect calls from N threads (one "
+                        "default CUDA stream: the threads overlap host work); output "
+                        "is bit-identical to serial dispatch")
+    p.add_argument("--aot-warmup", action=argparse.BooleanOptionalAction, default=True,
+                   help="run every knowable (chunk length, config, learn-phase) program "
+                        "once before tick 0 (service/aot.py) so no first kernel launch, "
+                        "allocation or pinned block lands inside a scored tick; "
+                        "--no-aot-warmup leaves that to tick 0")
     p.add_argument("--shard", type=int, default=0,
                    help="this serve's mesh shard index: scopes the journal/checkpoint/lease/"
                         "alert paths per shard and names the control-plane lease this "
@@ -1338,11 +1356,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_resilience_obs_flags(p)
     for flag, (takes_value, _where) in UNPORTED_SERVE_FLAGS.items():
         dest = "unported_" + flag[2:].replace("-", "_")
-        if flag == "--aot-warmup":
-            # --no-aot-warmup asks for what this package always does
-            p.add_argument(flag, dest=dest, action=argparse.BooleanOptionalAction,
-                           default=None, help=argparse.SUPPRESS)
-            continue
         p.add_argument(flag, dest=dest, help=argparse.SUPPRESS,
                        **({"default": None} if takes_value
                           else {"action": "store_true", "default": None}))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass, field, replace
+from itertools import accumulate
 from typing import Sequence
 
 import numpy as np
@@ -198,8 +199,11 @@ def generate_stream(
         if cfg.noise_phi > 0.0:
             # AR(1), stationary std == sigma: x_t = phi*x_{t-1} + eps*sqrt(1-phi^2)
             noise *= np.sqrt(1.0 - cfg.noise_phi**2)
-            for i in range(1, cfg.length):
-                noise[i] += cfg.noise_phi * noise[i - 1]
+            # noise[i] += phi * noise[i - 1], in order, on Python floats: the
+            # same float64 operations as an indexed loop, ~3x quicker
+            phi = cfg.noise_phi
+            noise = np.fromiter(accumulate(noise.tolist(), lambda p, x: x + phi * p),
+                                np.float64, cfg.length)
         signal = (
             base
             + amp * np.sin(2 * np.pi * t_idx * cfg.cadence_s / cfg.period_s + phase)
@@ -247,11 +251,11 @@ def generate_cluster(
 ) -> list[LabeledStream]:
     """`n_nodes * len(metrics)` labeled streams, ids `node{i:05d}.{metric}`."""
     cfg = cfg or SyntheticStreamConfig()
+    by_metric = {m: replace(cfg, metric=m) for m in metrics}
     out = []
     for i in range(n_nodes):
         for m in metrics:
-            scfg = replace(cfg, metric=m)
-            out.append(generate_stream(f"node{i:05d}.{m}", scfg, seed=seed))
+            out.append(generate_stream(f"node{i:05d}.{m}", by_metric[m], seed=seed))
     return out
 
 

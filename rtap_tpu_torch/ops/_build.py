@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CC_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c99")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# serve's dispatch threads may reach a kernel's first use together: one
+# builds and loads it, the others wait for that library
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -73,8 +77,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel `name`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path, _, _ = build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                path, _, _ = build(name)
+                lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
 
 

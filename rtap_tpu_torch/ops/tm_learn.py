@@ -36,6 +36,7 @@ either reading, so the clamp changes no result).
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -44,11 +45,22 @@ from rtap_tpu_torch.models.perm import PermDomain
 
 #: launches of the CUDA kernel (plain CPU runs do not count)
 launches = 0
+# serve's dispatch threads launch concurrently: the count's read-modify-write
+# is taken under this lock, so no launch is lost
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _count_lock:
+        launches = 0
+
+
+def count_launch() -> None:
+    """Count one launch of the CUDA kernel (safe from any thread)."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 
 @dataclass(frozen=True)
@@ -349,7 +361,6 @@ def tm_learn_kernel(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
     """The pass on `presyn`/`perm` [G, R, M] in place -> (nsyn, conn, pot)
     uint8 [G, R]. CUDA tensors launch the kernel (counted in
     :data:`launches`); CPU tensors run :func:`tm_learn_plain`."""
-    global launches
     if presyn.device.type == "cpu":
         return tm_learn_plain(presyn, perm, meta, pids, pmasks, wids, aids, amasks, cs, K, N)
     if presyn.device.type != "cuda":
@@ -373,7 +384,7 @@ def tm_learn_kernel(presyn, perm, meta, pids, pmasks, wids, aids, amasks,
     )
     if err != 0:
         raise RuntimeError(f"tm_learn CUDA kernel failed to launch: cudaError {err}")
-    launches += 1
+    count_launch()
     return tuple(out)
 
 

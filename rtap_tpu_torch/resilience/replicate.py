@@ -809,8 +809,10 @@ class StandbyFollower:
             v = np.full((1, grp.G) + jvals.shape[1:], np.nan, np.float32)
             v[0, slots] = jvals[off:off + len(slots)]
             t = np.full((1, grp.G), int(jts), np.int64)
-            r_raw, r_ll, r_al = grp.collect_chunk(grp.dispatch_chunk(v, t, learn=self.learn))
-            self.learned_group_ticks += int(self.learn)
+            h = grp.dispatch_chunk(v, t, learn=self.learn)
+            r_raw, r_ll, r_al = grp.collect_chunk(h)
+            # the ticks its cadence learns on (every tick at full rate)
+            self.learned_group_ticks += h["learned"]
             self.gpos[gi] += 1
             if buffer_alerts:
                 gid = alert_gid(gi, grp)

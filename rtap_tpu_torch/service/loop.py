@@ -37,8 +37,13 @@ standby hands over the alert ids its dead leader delivered for ticks it
 never received. A fleet publisher (fleet/member.py) is told each tick's
 number, nothing more: its pushes run on its own thread.
 
-Not ported (ROADMAP.md queue A): dispatch threads, chunk stagger, AOT
-warm-up.
+The scheduling options are the JAX package's: ``dispatch_threads`` issues
+the per-group dispatches and collects from a thread pool (every group on
+the card's one default stream, so threads overlap host work only: value
+packing, the eager stages' Python, the collect waits; emission stays in
+group order), ``chunk_stagger`` rotates the micro-chunk boundaries across
+groups, and ``aot_warmup`` runs every knowable program once before tick 0
+(service/aot.py). None of them changes what a group computes.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import os
 import re
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
@@ -110,14 +116,17 @@ def live_loop(
     checkpoint_every: int = 0,
     stop_event=None,
     pipeline_depth: int = 1,
+    dispatch_threads: int = 1,
     learn: bool = True,
     auto_register: bool = False,
     auto_release_after: int = 0,
     micro_chunk: int = 1,
+    chunk_stagger: bool = False,
     chaos=None,
     degradation=None,
     quarantine_restore_after: int = 0,
     alert_flush_every: int = 1,
+    aot_warmup: bool = False,
     trace=None,
     flight=None,
     attributor=None,
@@ -150,6 +159,33 @@ def live_loop(
     tick. `micro_chunk=M` batches M ticks into one dispatch per group
     (alerts lag up to depth*M - 1 ticks). Membership changes, restores and
     checkpoints force a chunk boundary and drain the pipeline.
+
+    `dispatch_threads=N` issues the per-group dispatch and collect calls
+    from a pool of min(N, groups) threads (``stats["dispatch_threads"]``
+    is that effective count, 1 without a pool). Each group's calls touch
+    that group only, the first dispatch of each (chunk length, config,
+    learn) program runs alone, and emission stays serial in group order
+    after the collects join: the alert stream and the state are
+    bit-identical to the serial schedule. A dispatch or collect that
+    raises in a pool thread quarantines its group after the join.
+
+    `chunk_stagger=True` (needs micro_chunk >= 2): group i belongs to phase
+    class i mod M; each class keeps its own buffer and pipeline and flushes
+    on its own boundary (class c's first chunk is c + 1 rows, then every M),
+    so each tick dispatches about 1/M of the groups instead of all of them
+    every M-th tick. Checkpoints, claims, releases and restores force a
+    one-tick realignment (every class flushes its partial chunk, the
+    pipeline drains, the ramp restarts). ``stats["schedule"]`` then gives,
+    per tick, the groups dispatched, the groups whose learning pass ran for
+    that tick's row, the TM kernel launches and the dispatch ms.
+
+    `aot_warmup=True` runs every knowable (chunk length, config, learn)
+    program, and the claim program when capacity is claimable, once on a
+    throwaway group before tick 0 (service/aot.py); stats gain
+    ``aot_programs_compiled``, ``cold_compiles_after_warmup`` (programs the
+    loop dispatched that the warm-up did not know: 0 unless the
+    enumeration missed one), ``aot_warmup_s`` and ``aot_kernel_launches``
+    (the warm-up's launches, kept out of ``kernel_launches``).
 
     `learn=False` freezes the models (state bit-identical after any number
     of ticks; the likelihood keeps adapting) and never writes checkpoints.
@@ -238,6 +274,10 @@ def live_loop(
         raise ValueError(f"pipeline_depth must be >= 1; got {pipeline_depth}")
     if micro_chunk < 1:
         raise ValueError(f"micro_chunk must be >= 1; got {micro_chunk}")
+    if chunk_stagger and micro_chunk < 2:
+        raise ValueError("chunk_stagger needs micro_chunk >= 2")
+    if dispatch_threads < 1:
+        raise ValueError(f"dispatch_threads must be >= 1; got {dispatch_threads}")
     if quarantine_restore_after < 0:
         raise ValueError(
             f"quarantine_restore_after must be >= 0; got {quarantine_restore_after}")
@@ -581,25 +621,43 @@ def live_loop(
                 id_by_slot[s] = sid
             predictor.fold(gi, grp.last_predict, tick=grp.ticks - 1, ids=id_by_slot)
 
-    def _collect_tick(ts_rows, value_rows, handles, rmaps, last_tick):
-        # collects in group order, then emission in group order, so the
-        # alert stream is schedule-independent. Quarantined groups (and the
-        # None handles of failed dispatches) are skipped: their handles are
-        # dropped, never waited on; a collect fault quarantines its group
-        t0 = time.perf_counter()
-        pairs = [(gi, h) for gi, h in enumerate(handles)
-                 if gi not in quarantined and h is not None]
-        results: dict = {}
-        for gi, h in pairs:
-            tg0 = time.perf_counter()
-            try:
-                if chaos is not None:
-                    chaos.on_collect(gi, cur_tick)
-                results[gi] = groups[gi].collect_chunk(h)
-            except Exception as e:  # any fault isolates the group
-                _quarantine_group(gi, cur_tick, "collect", e)
+    pool = None  # the dispatch/collect thread pool (dispatch_threads > 1)
+
+    def _try_collect(item):
+        """Collect one group's chunk, capturing its fault instead of letting
+        it escape a pool thread -> (gi, result or None, exception or None);
+        the quarantine happens after the join, on the loop's thread."""
+        gi, h = item
+        tg0 = time.perf_counter()
+        try:
+            if chaos is not None:
+                chaos.on_collect(gi, cur_tick)
+            return gi, groups[gi].collect_chunk(h), None
+        except Exception as e:  # any fault isolates the group
+            return gi, None, e
+        finally:
             if trace is not None:
                 trace.add_span("collect", cur_tick, tg0, time.perf_counter() - tg0, group=gi)
+
+    def _collect_tick(ts_rows, value_rows, handles, rmaps, last_tick, idx=None):
+        # collects (in the pool when there is one), then emission strictly
+        # in group order, so the alert stream is schedule-independent.
+        # `handles` align with `idx` (the dispatched class's groups; every
+        # group when None). Quarantined groups (and the None handles of
+        # failed dispatches) are skipped: their handles are dropped, never
+        # waited on; a collect fault quarantines its group
+        sel = range(len(groups)) if idx is None else idx
+        t0 = time.perf_counter()
+        pairs = [(gi, h) for gi, h in zip(sel, handles)
+                 if gi not in quarantined and h is not None]
+        outs = [_try_collect(p) for p in pairs] if pool is None \
+            else list(pool.map(_try_collect, pairs))
+        results: dict = {}
+        for gi, res, exc in outs:
+            if exc is not None:
+                _quarantine_group(gi, cur_tick, "collect", exc)
+            else:
+                results[gi] = res
         t1 = time.perf_counter()
         phase_s["collect"] += t1 - t0
         if trace is not None:
@@ -625,19 +683,48 @@ def live_loop(
             group_scored[gi] += len(ts_rows) * n
             _fold_trackers(gi, groups[gi], slots, ids, cur_tick)
         obs_scored.inc(scored)
-        if journal is not None and pairs:
-            # the alert-delivery cursor: alerts through the chunk's last tick
-            # sit in the sink below this offset (flushed first so it is on
-            # disk). A hot standby prunes its buffered lines on it, so it
-            # names the collected tick, not the loop's: at pipeline depth 2
-            # the loop is a tick ahead, and a leader killed between this
-            # record and the next tick's emit would lose that tick's lines
+        cls = 0 if idx is None else class_of[idx[0]]
+        collected_through[cls] = max(collected_through[cls], last_tick)
+        live = [collected_through[c] for c in range(n_classes)
+                if any(gi not in quarantined for gi in class_idx[c])]
+        delivered = min(live, default=-1)
+        if journal is not None and pairs and delivered >= 0:
+            # the alert-delivery cursor: alerts through the named tick sit in
+            # the sink below this offset (flushed first so it is on disk). A
+            # hot standby prunes its buffered lines on it, so it names a
+            # collected tick, not the loop's (at pipeline depth 2 the loop is
+            # a tick ahead, and a leader killed between this record and the
+            # next tick's emit would lose that tick's lines), and under
+            # chunk_stagger the tick every phase class has collected through
             writer.flush_sink()
-            journal.append_cursor(journal_base + last_tick, writer.sink_offset())
+            journal.append_cursor(journal_base + delivered, writer.sink_offset())
         t2 = time.perf_counter()
         phase_s["emit"] += t2 - t1
         if trace is not None:
             trace.add_span("emit", cur_tick, t1, t2 - t1)
+
+    # ---- the warm-up: every knowable program runs once on a throwaway
+    # group before tick 0 (and before the journal replay), so no first
+    # launch, first allocation or first pinned block lands in a scored tick
+    aot_programs = 0
+    aot_warmup_s = 0.0
+    aot_launches = 0
+    prewarmed: set = set()
+    if aot_warmup:
+        from rtap_tpu_torch.service.aot import prewarm
+
+        t_warm = time.perf_counter()
+        l_warm = tm_learn.launches
+        prewarmed = prewarm(groups, micro_chunk, learn, degradation=degradation,
+                            include_claim=auto_register or any(
+                                g.free_slot_count() for g in groups))
+        aot_programs = len(prewarmed)
+        aot_warmup_s = time.perf_counter() - t_warm
+        # the warm-up's launches are reported apart from the scored ticks'
+        aot_launches = tm_learn.launches - l_warm
+        launches0 += aot_launches
+    # (chunk length m, group config, learn flag) of every program dispatched
+    warmed: set = set(prewarmed)
 
     # ---- journal recovery + replay: recovered rows past each group's
     # checkpoint go through the normal dispatch/collect path (m = 1
@@ -715,13 +802,14 @@ def live_loop(
                     v = np.full((1, grp.G) + jvals.shape[1:], np.nan, np.float32)
                     v[0, slots] = jvals[off:off + len(slots)]
                     t = np.full((1, grp.G), int(jts), np.int64)
+                    warmed.add((1, grp.cfg, learn))
                     try:
-                        r_raw, r_ll, r_al = grp.collect_chunk(
-                            grp.dispatch_chunk(v, t, learn=learn))
+                        h = grp.dispatch_chunk(v, t, learn=learn)
+                        r_raw, r_ll, r_al = grp.collect_chunk(h)
                     except Exception as e:  # isolate the group
                         _quarantine_group(gi, jt, "journal_replay", e)
                         continue
-                    learned_group_ticks += int(learn)
+                    learned_group_ticks += h["learned"]
                     gpos[gi] += 1
                     # catch-up ticks warm the trackers too (health at tick 0,
                     # like every replay-time event), before the row's alerts
@@ -751,66 +839,141 @@ def live_loop(
         # and every index already on disk (appends never reuse an index)
         journal_base = max(gpos + [journal.next_tick])
 
-    def _dispatch_all(value_rows, ts_rows, rmaps, learn_flag):
-        """Dispatch every unquarantined group -> handles aligned with the
-        groups (None for quarantined or faulted ones). A dispatch fault
-        (a device error, an injected one) quarantines its group."""
+    def _try_dispatch(gi, grp, v, t, learn_flag):
+        """Dispatch one group's chunk, capturing its fault: a raising
+        dispatch (a device error, an injected one) isolates that group
+        after the join, never unwinds the tick -> (handle, exception)."""
+        tg0 = time.perf_counter()
+        try:
+            if chaos is not None:
+                chaos.on_dispatch(gi, cur_tick)
+            return grp.dispatch_chunk(v, t, learn=learn_flag), None
+        except Exception as e:  # any fault isolates the group
+            return None, e
+        finally:
+            if trace is not None:
+                # host enqueue time on cuda: the span never waits for the device
+                trace.add_span("dispatch", cur_tick, tg0, time.perf_counter() - tg0, group=gi)
+
+    def _dispatch_all(value_rows, ts_rows, rmaps, learn_flag, idx=None, row_ticks=()):
+        """Dispatch every unquarantined group of `idx` (every group when
+        None) -> handles aligned with `idx` (None for quarantined or faulted
+        ones, which _collect_tick skips). The first dispatch of each (m,
+        config, learn) program runs alone; the rest overlap in the pool. A
+        dispatch fault quarantines its group after the join. The learned
+        group-ticks are counted here, on the loop's thread, per row tick
+        in `row_ticks` too (the schedule's per-tick learning groups)."""
         nonlocal learned_group_ticks
+        sel = list(range(len(groups))) if idx is None else list(idx)
         m = len(value_rows)
-        handles: list = [None] * len(groups)
-        for gi, grp in enumerate(groups):
+        handles: list = [None] * len(sel)
+        staged = []  # (handle index j, gi, grp, v, t)
+        for j, gi in enumerate(sel):
             if gi in quarantined:
                 continue
+            grp = groups[gi]
             slots, _ids, off = rmaps[gi]
             # trailing field axis preserved: values may be [N] or [N, n_fields]
             v = np.full((m, grp.G) + value_rows[0].shape[1:], np.nan, np.float32)
             for i, row in enumerate(value_rows):
                 v[i, slots] = row[off:off + len(slots)]
             t = np.repeat(np.asarray(ts_rows, np.int64)[:, None], grp.G, axis=1)
-            tg0 = time.perf_counter()
-            try:
-                if chaos is not None:
-                    chaos.on_dispatch(gi, cur_tick)
-                handles[gi] = grp.dispatch_chunk(v, t, learn=learn_flag)
-                learned_group_ticks += m * int(learn_flag)
-            except Exception as e:  # any fault isolates the group
-                _quarantine_group(gi, cur_tick, "dispatch", e)
-            if trace is not None:
-                # host enqueue time on cuda: the span never waits for the device
-                trace.add_span("dispatch", cur_tick, tg0, time.perf_counter() - tg0, group=gi)
+            staged.append((j, gi, grp, v, t))
+        faults: list = []
+        pooled: list = []
+        for item in staged:
+            j, gi, grp, v, t = item
+            key = (m, grp.cfg, learn_flag)
+            if pool is None or key not in warmed:
+                # a program's first dispatch runs alone (its first launches
+                # load the kernels' modules); the rest overlap in the pool
+                warmed.add(key)
+                handles[j], exc = _try_dispatch(gi, grp, v, t, learn_flag)
+                if exc is not None:
+                    faults.append((gi, exc))
+            else:
+                pooled.append(item)
+        if pooled:
+            outs = list(pool.map(lambda it: _try_dispatch(it[1], it[2], it[3], it[4],
+                                                          learn_flag), pooled))
+            for (j, gi, _grp, _v, _t), (h, exc) in zip(pooled, outs):
+                handles[j] = h
+                if exc is not None:
+                    faults.append((gi, exc))
+        for h in handles:
+            if h is not None:
+                learned_group_ticks += h["learned"]
+                if schedule is not None:
+                    for k_row, lrn_row in zip(row_ticks, h["learned_rows"]):
+                        schedule["learning_groups"][k_row] += int(lrn_row)
+        if schedule is not None:
+            schedule["groups_dispatched"][cur_tick] += sum(h is not None for h in handles)
+        for gi, exc in faults:
+            _quarantine_group(gi, cur_tick, "dispatch", exc)
         return handles
 
-    in_flight: deque = deque()
-    chunk_buf: list = []
+    # chunk_stagger: group i belongs to phase class i mod M; each class keeps
+    # its own buffer and pipeline and flushes on its own boundary (class c's
+    # first chunk is c + 1 rows, then every M), so each tick dispatches
+    # about 1/M of the groups instead of every group every M-th tick. Plain
+    # serving is the single class 0
+    n_classes = micro_chunk if chunk_stagger else 1
+    class_idx = [[gi for gi in range(len(groups)) if gi % n_classes == c]
+                 for c in range(n_classes)]
+    class_of = [gi % n_classes for gi in range(len(groups))]
+    in_flights: list[deque] = [deque() for _ in range(n_classes)]
+    chunk_bufs: list[list] = [[] for _ in range(n_classes)]
+    first_flush_done = [False] * n_classes
+    # the loop tick each class has collected through (the alert cursor's)
+    collected_through = [-1] * n_classes
+    # per tick: groups dispatched, groups whose pass ran for that tick's
+    # row, kernel launches, dispatch ms (chunk_stagger only)
+    schedule = {key: [0] * n_ticks for key in ("groups_dispatched", "learning_groups",
+                                                "kernel_launches")} if chunk_stagger else None
+    if schedule is not None:
+        schedule["dispatch_ms"] = [0.0] * n_ticks
 
     def _drain():
-        while in_flight:
-            _collect_tick(*in_flight.popleft())
+        for c in range(n_classes):
+            while in_flights[c]:
+                _collect_tick(*in_flights[c].popleft())
 
     def _align_boundaries():
         """A nothing-buffered, nothing-in-flight instant (membership changes,
-        restores and checkpoints need one): flush the partial chunk, drain."""
-        if chunk_buf:
-            _flush()
+        restores and checkpoints need one): flush every class's partial
+        chunk and drain; under chunk_stagger the ramp then restarts (its
+        partial lengths 1..M are programs the warm-up knows)."""
+        for c in range(n_classes):
+            if chunk_bufs[c]:
+                _flush(c)
         _drain()
+        if chunk_stagger:
+            for c in range(n_classes):
+                first_flush_done[c] = False
 
-    def _flush():
-        vrows = [b[0] for b in chunk_buf]
-        tsrows = [b[1] for b in chunk_buf]
-        last_tick = chunk_buf[-1][2]  # the loop tick of the chunk's last row
-        chunk_buf.clear()
+    def _flush(c):
+        buf = chunk_bufs[c]
+        vrows = [b[0] for b in buf]
+        tsrows = [b[1] for b in buf]
+        row_ticks = [b[2] for b in buf]
+        last_tick = row_ticks[-1]  # the loop tick of the chunk's last row
+        buf.clear()
+        first_flush_done[c] = True
+        if not class_idx[c]:
+            return  # more classes than groups: nothing to dispatch
         # the degradation ladder removes learning per chunk at dispatch time
         # (level 1 thins, level >= 2 freezes); it never adds it
         lrn = learn and (degradation is None or degradation.learn_allowed(cur_tick))
         now = time.perf_counter()
-        handles = _dispatch_all(vrows, tsrows, routing, lrn)
+        idx = None if n_classes == 1 else class_idx[c]
+        handles = _dispatch_all(vrows, tsrows, routing, lrn, idx, row_ticks)
         t1 = time.perf_counter()
         phase_s["dispatch"] += t1 - now
         if trace is not None:
             trace.add_span("dispatch", cur_tick, now, t1 - now)
-        in_flight.append((tsrows, vrows, handles, routing, last_tick))
-        while len(in_flight) >= pipeline_depth:
-            _collect_tick(*in_flight.popleft())
+        in_flights[c].append((tsrows, vrows, handles, routing, last_tick, idx))
+        while len(in_flights[c]) >= pipeline_depth:
+            _collect_tick(*in_flights[c].popleft())
 
     def _restore_due(k: int) -> bool:
         """Quarantine auto-restore: each group whose cooldown elapsed is
@@ -859,6 +1022,13 @@ def live_loop(
             _res_event("group_restored", k, group=gi, resumed_from_tick=int(restored.ticks))
         return restored_any
 
+    # one pool for the whole loop; None is the serial schedule (1 group or 1
+    # thread), bit-identical to it by test
+    eff_threads = 1
+    if dispatch_threads > 1 and len(groups) > 1:
+        eff_threads = min(dispatch_threads, len(groups))
+        pool = ThreadPoolExecutor(max_workers=eff_threads,
+                                  thread_name_prefix="rtap-loop-dispatch")
     try:
         for k in range(n_ticks):
             # orderly shutdown: finish between ticks, save final state, report
@@ -894,6 +1064,7 @@ def live_loop(
             if chaos is not None:
                 chaos.set_tick(k)
             t_start = time.perf_counter()
+            launches_tick0 = tm_learn.launches
             scored_tick0 = list(group_scored) if flight is not None else None
             phase_tick0 = dict(phase_s)
             # membership booking excludes the dispatch/collect/emit seconds
@@ -912,7 +1083,8 @@ def live_loop(
                     _sync_source_membership(source, reg)
             # lazy model creation: unknown ids the source saw claim free pad
             # slots, with nothing buffered or in flight
-            if auto_register and reg is not None and not chunk_buf \
+            if auto_register and reg is not None \
+                    and (not any(chunk_bufs) or chunk_stagger) \
                     and hasattr(source, "drain_unknown"):
                 fresh = [s for s in source.drain_unknown()
                          if s not in auto_rejected and s not in reg
@@ -932,7 +1104,7 @@ def live_loop(
                 if claimed:
                     _sync_source_membership(source, reg)
             # elastic shrink: streams silent for auto_release_after ticks
-            if release_pending and not chunk_buf:
+            if release_pending and (not any(chunk_bufs) or chunk_stagger):
                 _align_boundaries()
                 for sid in release_pending:
                     if sid in reg:
@@ -1044,21 +1216,27 @@ def live_loop(
                             silent_ticks.pop(sid, None)
             # held across ticks (micro_chunk) and collects (depth >= 2): a
             # source reusing its buffer must not corrupt the emitted values
-            chunk_buf.append((values.copy() if pipeline_depth > 1 or micro_chunk > 1
-                              else values, ts, k))
-            if len(chunk_buf) >= micro_chunk or k + 1 == n_ticks:
-                _flush()
+            row = (values.copy() if pipeline_depth > 1 or micro_chunk > 1 else values, ts, k)
+            for c in range(n_classes):
+                chunk_bufs[c].append(row)
+                # a staggered class's first flush comes at c + 1 rows, which
+                # tiles the classes' boundaries across ticks; then every M
+                target = micro_chunk if first_flush_done[c] or not chunk_stagger else c + 1
+                if len(chunk_bufs[c]) >= target or k + 1 == n_ticks:
+                    _flush(c)
             if correlator is not None:
                 # after this tick's emission: close quiesced windows on the
                 # source clock (alerts lagging in the pipeline carry their own
                 # older ts; --correlate-window must exceed that staleness)
                 correlator.on_tick(ts, tick=k, sink_offset=writer.sink_offset())
             ticks_run = k + 1
-            if learn and checkpoint_every and checkpoint_dir and not chunk_buf \
+            if learn and checkpoint_every and checkpoint_dir \
+                    and (not any(chunk_bufs) or chunk_stagger) \
                     and ticks_run - last_saved >= checkpoint_every \
                     and (lease is None or lease.still_mine()):
                 # due-since-last-save, not a modulus: with micro_chunk > 1
-                # boundaries land only at multiples of M. The lease gate
+                # boundaries land only at multiples of M (under chunk_stagger
+                # the save realigns every class's boundary). The lease gate
                 # keeps a paused old leader that woke mid-tick from
                 # clobbering the promoted standby's checkpoints
                 if ck_breaker.allow():
@@ -1095,6 +1273,9 @@ def live_loop(
             deltas = {p: phase_s[p] - phase_tick0[p] for p in _PHASES}
             for p in _PHASES:
                 obs_phase[p].observe(deltas[p])
+            if schedule is not None:
+                schedule["kernel_launches"][k] = tm_learn.launches - launches_tick0
+                schedule["dispatch_ms"][k] = round(deltas["dispatch"] * 1e3, 3)
             if trace is not None:
                 trace.add_span("tick", k, t_start, elapsed)
                 obs_trace_records.set(trace.total)
@@ -1143,10 +1324,13 @@ def live_loop(
                     stop_event.wait(budget)  # a shutdown signal ends the sleep
                 else:
                     time.sleep(budget)
-        if chunk_buf:
-            _flush()  # early stop mid-chunk: score what was ingested
+        for c in range(n_classes):
+            if chunk_bufs[c]:
+                _flush(c)  # early stop mid-chunk: score what was ingested
         _drain()
     finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
         if flight is not None:
             # a quarantine raised by the final drain (or an early stop)
             # queued its dump after the last in-loop flush
@@ -1166,7 +1350,23 @@ def live_loop(
     stats = {**counter.stats(), "alerts": writer.count, "missed_deadlines": missed,
              "missing_values": missing_values,
              "ticks": ticks_run, "cadence_s": cadence_s, "n_groups": len(groups),
-             "pipeline_depth": pipeline_depth, "micro_chunk": micro_chunk, "learn": learn}
+             "pipeline_depth": pipeline_depth, "micro_chunk": micro_chunk,
+             "chunk_stagger": chunk_stagger, "learn": learn,
+             # the effective worker count: 1 when no pool was made
+             "dispatch_threads": eff_threads}
+    if aot_warmup:
+        stats["aot_programs_compiled"] = aot_programs
+        # programs the loop dispatched that the warm-up did not know: 0
+        # unless the knowable-program enumeration missed one
+        # (the card's groups only: the warm-up skips CPU groups, which load
+        # no device modules)
+        dev_cfgs = [g.cfg for g in groups if g.device.type == "cuda"]
+        stats["cold_compiles_after_warmup"] = sum(
+            1 for key in warmed - prewarmed if key[1] in dev_cfgs)
+        stats["aot_warmup_s"] = round(aot_warmup_s, 4)
+        stats["aot_kernel_launches"] = aot_launches
+    if schedule is not None:
+        stats["schedule"] = {key: v[:ticks_run] for key, v in schedule.items()}
     if auto_register:
         stats.update(auto_registered=auto_registered, auto_rejected=auto_rejected_total)
     if auto_release_after:
@@ -1197,6 +1397,9 @@ def live_loop(
         for p in (50, 90, 99):
             stats[f"latency_p{p}_ms"] = round(float(np.percentile(used, p)) * 1e3, 3)
         stats["latency_max_ms"] = round(float(used.max()) * 1e3, 3)
+        # the first tick's own ms: what the warm-up exists to bring under
+        # the cadence
+        stats["tick0_ms"] = round(float(used[0]) * 1e3, 3)
     if cadence_s > 0:
         stats["missed_tick_phase_ms"] = missed_phase_ms
     # resilience accounting: per-group scored counts are the chaos soak's

@@ -26,7 +26,7 @@ device) may be set after construction, as a batched NAB corpus run does.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -128,6 +128,16 @@ class StreamGroup:
     def free_slot_count(self) -> int:
         return self.G - self.n_live
 
+    def learning_rows(self, m: int, learn: bool = True) -> list[bool]:
+        """Which of the next `m` dispatched ticks run the TM learning pass
+        (one kernel launch each on the card): all of them at full rate,
+        those the config's cadence names otherwise, none with `learn` off."""
+        if not learn:
+            return [False] * m
+        if not self.cfg.cadence_active:
+            return [True] * m
+        return [bool(self.cfg.learns_on(self._tick0 + t)) for t in range(m)]
+
     def claim_slot(self, stream_id: str) -> int:
         """Assign `stream_id` to a pad slot mid-run -> slot index; the slot
         restarts exactly like a stream registered into a fresh group."""
@@ -201,7 +211,8 @@ class StreamGroup:
 
     def dispatch_chunk(self, values: np.ndarray, ts: np.ndarray, learn: bool = True) -> dict:
         """Enqueue T ticks on the device without waiting for the result ->
-        a handle for :meth:`collect_chunk`. Handles must be collected in
+        a handle for :meth:`collect_chunk` (its ``learned`` is how many of
+        the T ticks ran the learning pass). Handles must be collected in
         dispatch order (the likelihood is sequential)."""
         values = np.asarray(values, np.float32)
         if values.ndim == 2:
@@ -229,9 +240,11 @@ class StreamGroup:
             leaves = {k: v if v is None else _pinned_copy(v) for k, v in leaves.items()}
             done = torch.cuda.Event()
             done.record()
+        learned = self.learning_rows(T, learn)
         self._tick0 += T
         self._seq += 1
-        return {**leaves, "done": done, "T": T, "seq": self._seq}
+        return {**leaves, "done": done, "T": T, "seq": self._seq,
+                "learned": sum(learned), "learned_rows": learned}
 
     def collect_chunk(self, handle: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Block on a dispatched chunk -> (raw [T, G], log_likelihood [T, G],
@@ -310,13 +323,22 @@ class _Slot:
 class StreamGroupRegistry:
     """Lazy stream_id -> (group, slot) assignment: streams fill the open
     group until it reaches `group_size`, then a new group opens; every group
-    is padded to `group_size`."""
+    is padded to `group_size`.
+
+    `stagger_learn` (on only when ``cfg.learn_every`` > 1) shifts each
+    group's learning cadence by its index: group i is built with
+    ``learn_phase = (i mod learn_every) * learn_burst``, so on any tick past
+    the full-rate window 1/learn_every of the groups learn instead of all of
+    them every learn_every-th tick. The phases follow from the group index
+    alone, so a registry rebuilt with the same flags reproduces them."""
 
     def __init__(self, cfg: ModelConfig, group_size: int = 1024, device=None, seed: int = 0,
                  threshold: float = 0.5, debounce: int = 1,
-                 mesh=None, health: bool = False, predict: int = 0):
+                 mesh=None, health: bool = False, predict: int = 0,
+                 stagger_learn: bool = False):
         _refuse_mesh(mesh)
         self.cfg = cfg
+        self.stagger_learn = bool(stagger_learn) and cfg.learn_every > 1
         self.health = bool(health)
         self.predict = int(predict)
         self.device = resolve_device(device)
@@ -368,8 +390,17 @@ class StreamGroupRegistry:
         s.group.release_slot(stream_id)
         self.version += 1
 
+    def _group_cfg(self, gi: int) -> ModelConfig:
+        """The config group `gi` is built with: the registry's, its cadence
+        phase shifted by whole bursts when stagger_learn is on (at most
+        learn_every distinct configs fleet-wide)."""
+        if not self.stagger_learn:
+            return self.cfg
+        return replace(self.cfg,
+                       learn_phase=(gi % self.cfg.learn_every) * self.cfg.learn_burst)
+
     def _new_group(self, ids: list[str]) -> StreamGroup:
-        grp = StreamGroup(self.cfg, ids,
+        grp = StreamGroup(self._group_cfg(len(self.groups)), ids,
                           seed=self.seed + len(self.groups), device=self.device,
                           threshold=self.threshold, debounce=self.debounce,
                           health=self.health, predict=self.predict)

@@ -233,7 +233,10 @@ class TcpJsonlSource:
 
         self._server = Server((host, port), Handler)
         self.address = self._server.server_address  # (host, bound port)
+        # a 0.05 s accept poll: close() returns within it (the default
+        # 0.5 s held every serve's exit that long)
         self._thread = threading.Thread(target=self._server.serve_forever,
+                                        kwargs={"poll_interval": 0.05},
                                         name="rtap-sources-accept", daemon=True)
 
     def start(self) -> "TcpJsonlSource":

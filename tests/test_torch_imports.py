@@ -35,6 +35,7 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/service/registry.py", "rtap_tpu_torch/service/loop.py",
             "rtap_tpu_torch/service/alerts.py", "rtap_tpu_torch/service/checkpoint.py",
             "rtap_tpu_torch/service/sources.py", "rtap_tpu_torch/service/shardpath.py",
+            "rtap_tpu_torch/service/aot.py",
             "rtap_tpu_torch/resilience/journal.py", "rtap_tpu_torch/resilience/policies.py",
             "rtap_tpu_torch/obs/metrics.py", "rtap_tpu_torch/obs/watchdog.py",
             "rtap_tpu_torch/obs/health.py", "rtap_tpu_torch/ops/health.py",

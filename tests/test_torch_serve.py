@@ -443,9 +443,8 @@ def test_serve_cli_tcp_scores_pushed_records(tmp_path):
 def _unported_argv():
     from rtap_tpu_torch.__main__ import UNPORTED_SERVE_FLAGS
 
-    cases = [(flag, [flag, "1"] if takes_value else [flag])
-             for flag, (takes_value, _) in UNPORTED_SERVE_FLAGS.items()]
-    return cases + [("--dispatch-threads", ["--dispatch-threads", "4"])]
+    return [(flag, [flag, "1"] if takes_value else [flag])
+            for flag, (takes_value, _) in UNPORTED_SERVE_FLAGS.items()]
 
 
 @pytest.mark.parametrize("flag,extra", _unported_argv(), ids=lambda v: v if isinstance(v, str) else "")
