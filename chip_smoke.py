@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's replay, serve (with its scheduling flags), ingest, resilience, failover, control-plane, checkpoint-import, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's replay, serve (with its scheduling flags), ingest, resilience, failover, control-plane, fleet chaos, checkpoint-import, observability, NAB, model and eval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed S] [--streams G] [--ticks T] [--deadline-s D]
 
@@ -16,6 +16,16 @@ script's start): every wait draws on it, and when it is reached the
 running phase's children are killed by process group, one line
 ``{"phase": "deadline", "running": <phase>, "phase_seconds": {...}}`` is
 printed and the run exits 4.
+
+The CPU halves of the card == CPU comparisons of phases 10, 11, 13, 15(b),
+16 and 17 run in one background process (this script's hidden
+``--cpu-refs`` mode), started after phase 2 with ``CUDA_VISIBLE_DEVICES=``
+and pinned to 2 of the host's cores (torch's threads to match): phase 11's
+NAB prefix at once, beside phases 3-5; the others from phase 9 on, so that
+none overlaps the serve phases 6-8. Each phase makes its comparison as
+before once its CPU half arrives, and the process must end with every job
+done before the done line; a failed job, or the process's death, fails the
+run.
 
 1. the card: ``nvidia-smi`` name and power limit (also printed raw).
 2. build: the TM learning kernel, rtap_tpu_torch/csrc/tm_learn.cu, with nvcc
@@ -295,6 +305,26 @@ printed and the run exits 4.
    again through the plain TM pass on the card end leaf-equal to the
    kernel's; (e) 4 dispatch threads. Each tick's launches and dispatch ms
    are reported beside phase 6's per-tick phase ms.
+26. the fleet chaos drill: ``python -m rtap_tpu_torch.fleet_chaos --device
+   cuda`` as a child, two control-plane shards of 1,024 full-width streams
+   (one group each), 160 ticks per shard at 0.2 s (lease 0.8 s), every
+   stream alerting every tick, checkpoints every 16: both shards' leaders
+   SIGKILLed, shard 0's standby SIGKILLed, the plane SIGKILLed and restarted
+   from its journal, the SIGSTOP fence round on shard 1, the drain of shard
+   0, the two fault-free references beside it. Gates: the JAX twin's
+   assertions (verified; 2 leader kills; the standby kill; the outage
+   survived with degraded ticks counted by the fleet plane and the stats
+   lines; fence rc 7; drain rc 0; per shard 0 duplicated, lost or extra
+   alert ids and the state leaves compared; grants rising strictly), each
+   shard's 1,024 x 160 alert ids, every life's launches its learned group
+   ticks and each reference's launches its 160 ticks, every promotion
+   detected within the 10-tick budget, no unscheduled fence, and each of
+   the two plane processes without a CUDA context (no /dev/nvidia* file
+   open, not in ``nvidia-smi --query-compute-apps``; a member's has).
+   Reported: the schedule and the tick each round fired at, each
+   promotion's detection and tick, the outage, the degraded ticks, the
+   fence and drain rounds, each life's launches, each child's start to
+   warm and release to following or leading, the references' seconds.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when CUDA is unavailable.
@@ -480,13 +510,19 @@ IMPORT_SERVE_CADENCE = 0.1
 # debounce makes every stream alert on ticks SCHED_DEBOUNCE - 1 .. 15
 SCHED_TICKS, SCHED_MICRO, SCHED_LEARN_EVERY, SCHED_THREADS = 16, 4, 4, 4
 SCHED_CHECKPOINT_EVERY, SCHED_DEBOUNCE = 8, 13
+# phase 26: the fleet chaos drill. Two control-plane shards, each one group of
+# CONTROL_STREAMS (the drill's group shape, phase 23's per-shard shape), at
+# phase 22(b)'s cadence (lease 0.8 s), threshold at the floor (every stream
+# alerts every tick), the tick budget per shard
+FLEET_CHAOS = dict(seed=0, ticks=160, cadence=0.2, checkpoint_every=16)
 PHASE_NAMES = {2: "1-2 card and build", 3: "3 kernel vs plain", 4: "4 slice",
                5: "5 card vs cpu", 6: "6 serve", 7: "7 kill drill", 8: "8 serve model side",
                9: "9 flags on vs off", 10: "10 cascade", 11: "11 nab corpus", 12: "12 golden",
                13: "13 classifier", 14: "14 serve presets", 15: "15 eval", 16: "16 workloads",
                17: "17 node and held-out", 18: "18 report", 19: "19 resilience",
                20: "20 obs cost", 21: "21 binary ingest", 22: "22 replication",
-               23: "23 control plane", 24: "24 imports", 25: "25 scheduling flags"}
+               23: "23 control plane", 24: "24 imports", 25: "25 scheduling flags",
+               26: "26 fleet chaos"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -696,6 +732,79 @@ def run_child(cmd: list[str], timeout: float, **kw) -> subprocess.CompletedProce
         p.communicate()
         raise
     return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+CPU_REF_CORES = 2  # the background CPU references' cores (and torch threads)
+
+
+class CpuRefs:
+    """The smoke's CPU-side references, run in one background process (this
+    script's hidden ``--cpu-refs`` mode) that never initialises CUDA
+    (``CUDA_VISIBLE_DEVICES=`` in its environment) and is pinned to
+    CPU_REF_CORES of the host's cores. Its first jobs start at once, beside
+    phases 3-5; the others wait for ``go()`` (phase 9), so that none of
+    them overlaps the serve phases 6-8. Each job leaves a pickle of (ok,
+    value or error, seconds); ``result`` waits for one on the deadline and
+    raises if the job failed or the process died without it, so each
+    phase's comparison is made as it was, only once its CPU half arrives.
+    The process is a ``spawn_child``: the deadline kills it with the rest."""
+
+    def __init__(self):
+        self.proc: subprocess.Popen | None = None
+        self.dir: str | None = None
+
+    def start(self, seed: int, cmd: list[str] | None = None) -> None:
+        self.dir = tempfile.mkdtemp(prefix="rtap-cpu-refs-")
+        cmd = cmd or [sys.executable, os.path.abspath(__file__), "--cpu-refs", "--seed", str(seed)]
+        self.log = open(os.path.join(self.dir, "log"), "w")
+        self.proc = spawn_child([*cmd, "--workdir", self.dir], stdout=self.log,
+                                stderr=subprocess.STDOUT,
+                                env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+    def go(self) -> None:
+        """Let the jobs that wait for phase 9 start."""
+        open(os.path.join(self.dir, "go"), "w").close()
+
+    def _failed(self, what: str) -> AssertionError:
+        with open(os.path.join(self.dir, "log")) as f:
+            tail = f.read()[-3000:]
+        return AssertionError(f"background CPU references: {what}\n{tail}")
+
+    def result(self, name: str, timeout: float = 900):
+        """Job `name`'s value, once the background has it."""
+        import pickle
+
+        path = os.path.join(self.dir, f"{name}.pkl")
+        t0, end = time.perf_counter(), DEADLINE.until(timeout)
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                raise self._failed(f"exited {self.proc.returncode} without {name}")
+            if time.time() > end:
+                raise self._failed(f"no {name} within {timeout} s")
+            time.sleep(0.05)
+        with open(path, "rb") as f:
+            ok, value, secs = pickle.load(f)
+        if not ok:
+            raise self._failed(f"{name} failed: {value}")
+        part(f"background CPU reference {name}", secs,
+             waited_s=round(time.perf_counter() - t0, 3))
+        return value
+
+    def join(self, timeout: float = 300) -> None:
+        """The background ended with every job done (before the done line)."""
+        rc = self.proc.wait(timeout=DEADLINE.cap(timeout))
+        self.log.close()
+        if rc != 0:
+            raise self._failed(f"exited {rc}")
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
+BG = CpuRefs()
 
 
 def cuda_ms(fn, reps: int, before=None) -> float:
@@ -1148,6 +1257,71 @@ def _serve_feed(seed: int, ts0: int | None = None, n_streams: int = SERVE_STREAM
     return ids, ticks, time.perf_counter() - t0
 
 
+def _cpu_ref_jobs(seed: int, work: str) -> list:
+    """The background's jobs in the order it runs them: (name, waits for
+    phase 9, fn). Each is the CPU half of a card == CPU comparison, run as
+    its phase ran it before."""
+    from rtap_tpu_torch.__main__ import main as cli
+    from rtap_tpu_torch.eval import node_eval
+    from rtap_tpu_torch.eval import workload_eval as we
+
+    def eval_cpu():
+        out = os.path.join(work, "eval_cpu_check_cpu.json")
+        secs, _ = _in_process(cli, ["eval", "--device", "cpu", "--streams", str(EVAL_CPU_STREAMS),
+                                    "--length", str(EVAL_CPU_LENGTH), "--out", out])
+        with open(out) as f:
+            return json.load(f), secs
+
+    return [
+        ("nab_prefix", False, lambda: _nab_run("cpu", work, "prefix_cpu", "--rows",
+                                               str(NAB_CPU_ROWS), "--subset", NAB_CPU_SUBSET)),
+        ("cascade_cpu", True, lambda: _predict_eval_here("cpu", "--device", "cpu")),
+        ("classifier_cpu", True, lambda: _classifier_run("cpu", seed)),
+        ("eval_cpu", True, eval_cpu),
+        ("log_template_cpu", True, lambda: we.run_log_template_eval(
+            n_streams=4, length=WORKLOAD_SHAPE[1], device="cpu", seed=WORKLOAD_SHAPE[2])),
+        ("node_cpu", True, lambda: node_eval.run_node_eval(*NODE_CPU, device="cpu")),
+    ]
+
+
+def run_cpu_refs(args) -> int:
+    """The hidden ``--cpu-refs`` mode (see CpuRefs): pinned to CPU_REF_CORES
+    cores, each job's (ok, value or error, seconds) pickled into --workdir;
+    the jobs after the first wait for the ``go`` file. Exits 1 if a job
+    failed or CUDA was initialised."""
+    import pickle
+    import traceback
+
+    cores = sorted(os.sched_getaffinity(0))[-CPU_REF_CORES:]
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(len(cores))
+    parent = os.getppid()
+    work = os.path.join(args.workdir, "work")
+    os.makedirs(work, exist_ok=True)
+    failed = False
+    for name, after_go, fn in _cpu_ref_jobs(args.seed, work):
+        while after_go and not os.path.exists(os.path.join(args.workdir, "go")):
+            if os.getppid() != parent:
+                return 1  # the smoke is gone
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        try:
+            ok, value = True, fn()
+        except Exception as e:  # noqa: BLE001 - reported to the smoke, which fails on it
+            traceback.print_exc()
+            ok, value, failed = False, f"{type(e).__name__}: {e}", True
+        path = os.path.join(args.workdir, f"{name}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump((ok, value, time.perf_counter() - t0), f)
+        os.replace(path + ".tmp", path)
+        print(json.dumps({"job": name, "ok": ok, "seconds": time.perf_counter() - t0}),
+              flush=True)
+    if torch.cuda.is_initialized():
+        print("the background CPU references initialised CUDA", flush=True)
+        return 1
+    return 1 if failed else 0
+
+
 def phase_serve(seed: int, card: str, streams=None) -> dict:
     """`python -m rtap_tpu_torch serve` at full width in a child process,
     fed over TCP by this process in step with the child's ticks (the first
@@ -1462,13 +1636,13 @@ def _drill_records(path: str) -> tuple[dict, list, int]:
 
 
 def _drill_checkpoints(ckdir: str) -> dict:
-    from rtap_tpu_torch.service.checkpoint import _read_tree
+    from rtap_tpu_torch.service.ckpt_tree import read_npy_tree
 
     out = {}
     for name in sorted(os.listdir(ckdir)):
         if name.startswith("group"):
             meta = json.loads(open(os.path.join(ckdir, name, "meta.json")).read())
-            out[name] = (meta["ticks"], _read_tree(Path(ckdir, name, "state")))
+            out[name] = (meta["ticks"], read_npy_tree(Path(ckdir, name, "state")))
     return out
 
 
@@ -1779,6 +1953,23 @@ def _event_ids(path: str) -> list[str]:
     return ids
 
 
+def _predict_eval_here(tag: str, *argv: str) -> dict:
+    """predict_eval's main in this process -> its result line."""
+    import contextlib
+    import io
+
+    from rtap_tpu_torch.predict_eval import main as pe_main
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = pe_main(list(argv))
+    part(f"predict_eval {tag}", time.perf_counter() - t)
+    if rc != 0:
+        raise AssertionError(f"predict_eval {tag} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
 def phase_cascade(card: str) -> dict:
     """``python -m rtap_tpu_torch.predict_eval`` at the JAX script's defaults
     on the card and on this machine's CPU (same page tick and first-precursor
@@ -1794,28 +1985,11 @@ def phase_cascade(card: str) -> dict:
                            stderr=subprocess.PIPE, text=True))
         return procs[-1]
 
-    def here(tag, *argv):
-        """predict_eval's main in this process -> its result line."""
-        import contextlib
-        import io
-
-        from rtap_tpu_torch.predict_eval import main as pe_main
-
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = pe_main(list(argv))
-        part(f"predict_eval {tag}", time.perf_counter() - t)
-        if rc != 0:
-            raise AssertionError(f"predict_eval {tag} returned {rc}")
-        return json.loads(buf.getvalue().strip().splitlines()[-1])
-
     t0 = time.perf_counter()
     try:
-        # one after the other: the CPU run's threads would slow the card run's host
-        card_res = here("card", "--device", "cuda")
+        card_res = _predict_eval_here("card", "--device", "cuda")
         cuda_s = time.perf_counter() - t0
-        cpu_res = here("cpu", "--device", "cpu")
+        cpu_res = BG.result("cascade_cpu")
         score, cpu_score = card_res["score"], cpu_res["score"]
         checks = {
             "verified": card_res["verified"] and score["win"] and score["blast_covered"]
@@ -1855,7 +2029,7 @@ def phase_cascade(card: str) -> dict:
             raise AssertionError(f"the first precursor never reached the stream (rc {p.returncode})")
         kill["rc"] = p.returncode
         part("predict_eval killed child", time.perf_counter() - t_kill)
-        final = here("resumed", *cmd[3:])
+        final = _predict_eval_here("resumed", *cmd[3:])
         ids = _event_ids(alerts)
         dup = sorted({i for i in ids if ids.count(i) > 1})
         fscore = final["score"]
@@ -1948,7 +2122,7 @@ def phase_nab_corpus(card: str) -> tuple[dict, dict]:
         # card == CPU on a prefix of one file, at full width
         extra = ("--rows", str(NAB_CPU_ROWS), "--subset", NAB_CPU_SUBSET)
         prefix = dict(args=list(extra), **_nab_same(_nab_run("cuda", work, "prefix_card", *extra),
-                                                    _nab_run("cpu", work, "prefix_cpu", *extra)))
+                                                    BG.result("nab_prefix")))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     scores = {k: v["score"] for k, v in rep["scores_exact"].items()}
@@ -2049,35 +2223,45 @@ def phase_golden(card: str) -> dict:
     return row
 
 
+def _classifier_cfg():
+    import dataclasses
+
+    from rtap_tpu_torch.config import ClassifierConfig, cluster_preset
+
+    return dataclasses.replace(cluster_preset(), classifier=ClassifierConfig(enabled=True))
+
+
+def _classifier_run(dev: str, seed: int) -> dict:
+    """Phase 13's CLS_TICKS learning ticks of CLS_STREAMS seeded streams on
+    `dev` -> raw, predictions, probabilities, state, launches, seconds."""
+    import rtap_tpu_torch.ops.tm_learn as tl
+    from rtap_tpu_torch.data.synthetic import cluster_streams
+    from rtap_tpu_torch.models.state import init_state, state_to_numpy
+    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
+
+    cfg = _classifier_cfg()
+    streams = cluster_streams(CLS_STREAMS, CLS_TICKS, seed + 2, n_anomalies=0)
+    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None])
+    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32))
+    st = replicate_state_device(init_state(cfg, seed), CLS_STREAMS, dev)
+    tl.reset_launches()
+    t0 = time.perf_counter()
+    st, (raw, pred, prob) = chunk_step(st, vals.to(dev), ts.to(dev), cfg)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(raw=raw.cpu().numpy(), pred=pred.cpu().numpy(), prob=prob.cpu().numpy(),
+                state=state_to_numpy(st), launches=tl.launches, seconds=time.perf_counter() - t0)
+
+
 def phase_classifier(seed: int, card: str) -> dict:
     """cluster_preset with the SDR classifier at G = 64 over CLS_TICKS learning
     ticks on the card and on the CPU: raw, every other leaf and cls_cnt bit
     for bit, cls_w at rtol 1e-5 / atol 1e-6, predictions and probabilities
     within 1e-4."""
-    import dataclasses
+    from rtap_tpu_torch.models.state import state_nbytes
 
-    import rtap_tpu_torch.ops.tm_learn as tl
-    from rtap_tpu_torch.config import ClassifierConfig, cluster_preset
-    from rtap_tpu_torch.data.synthetic import cluster_streams
-    from rtap_tpu_torch.models.state import init_state, state_nbytes, state_to_numpy
-    from rtap_tpu_torch.ops.step import chunk_step, replicate_state_device
-
-    cfg = dataclasses.replace(cluster_preset(), classifier=ClassifierConfig(enabled=True))
-    streams = cluster_streams(CLS_STREAMS, CLS_TICKS, seed + 2, n_anomalies=0)
-    vals = torch.from_numpy(np.stack([s.values for s in streams], 1)[:, :, None])
-    ts = torch.from_numpy(np.stack([s.timestamps for s in streams], 1).astype(np.int32))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        st = replicate_state_device(init_state(cfg, seed), CLS_STREAMS, dev)
-        tl.reset_launches()
-        t0 = time.perf_counter()
-        st, (raw, pred, prob) = chunk_step(st, vals.to(dev), ts.to(dev), cfg)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[dev] = dict(raw=raw.cpu().numpy(), pred=pred.cpu().numpy(), prob=prob.cpu().numpy(),
-                        state=state_to_numpy(st), launches=tl.launches,
-                        seconds=time.perf_counter() - t0)
-    c, p = out["cuda"], out["cpu"]
+    cfg = _classifier_cfg()
+    c, p = _classifier_run("cuda", seed), BG.result("classifier_cpu")
     leaf_bad = [k for k in p["state"] if k not in ("cls_w", "cls_val")
                 and not np.array_equal(c["state"][k], p["state"][k], equal_nan=True)]
     errs = {k: float(np.abs(c[k].astype(np.float64) - p[k]).max()) for k in ("pred", "prob")}
@@ -2186,7 +2370,8 @@ def _in_process(fn, argv: list[str]) -> tuple[float, int]:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = fn(argv)
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():  # the background CPU references have no card
+        torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError(f"{getattr(fn, '__module__', fn)} {argv} returned {rc}")
     return time.perf_counter() - t0, tl.launches
@@ -2243,11 +2428,11 @@ def phase_eval(card: str, work: str) -> dict:
 
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def run(tag, streams, length, *flags, device="cuda"):
+    def run(tag, streams, length, *flags):
         out = os.path.join(work, f"eval_{tag}.json")
-        secs, launches = _in_process(cli, ["eval", "--device", device, "--streams", str(streams),
+        secs, launches = _in_process(cli, ["eval", "--device", "cuda", "--streams", str(streams),
                                            "--length", str(length), "--out", out, *flags])
-        part(f"eval {tag}", secs, device=device, streams=streams, length=length)
+        part(f"eval {tag}", secs, device="cuda", streams=streams, length=length)
         with open(out) as f:
             return json.load(f), secs, launches, out
 
@@ -2287,10 +2472,10 @@ def phase_eval(card: str, work: str) -> dict:
     if failed:
         raise AssertionError(f"eval fixture failed: {failed}")
 
-    # (b) card == CPU at 12 streams x 850, streaming
+    # (b) card == CPU at 12 streams x 850, streaming (the CPU's in the background)
     length = EVAL_CPU_LENGTH
-    reps = {dev: run(f"cpu_check_{dev}", EVAL_CPU_STREAMS, length, device=dev)
-            for dev in ("cuda", "cpu")}
+    reps = {"cuda": run("cpu_check_cuda", EVAL_CPU_STREAMS, length),
+            "cpu": BG.result("eval_cpu")}
     if _strip_wall_clock(reps["cuda"][0]) != _strip_wall_clock(reps["cpu"][0]):
         raise AssertionError(f"eval card vs CPU differ: {reps['cuda'][0]['at_best']} vs "
                              f"{reps['cpu'][0]['at_best']}")
@@ -2390,11 +2575,10 @@ def phase_workloads(card: str, work: str) -> dict:
 
     port, oracle = best(rep), best(ref)
     t0 = time.perf_counter()
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        with timed_part("log template eval", device=dev, streams=4, length=length):
-            runs[dev] = we.run_log_template_eval(n_streams=4, length=length, device=dev,
-                                                 seed=seed)
+    with timed_part("log template eval", device="cuda", streams=4, length=length):
+        runs = {"cuda": we.run_log_template_eval(n_streams=4, length=length, device="cuda",
+                                                 seed=seed)}
+    runs["cpu"] = BG.result("log_template_cpu")
     if _strip_wall_clock(runs["cuda"]) != _strip_wall_clock(runs["cpu"]):
         raise AssertionError(f"log template card vs CPU differ: {runs['cuda']['at_best']} vs "
                              f"{runs['cpu']['at_best']}")
@@ -2436,10 +2620,9 @@ def phase_node_heldout(card: str, work: str) -> dict:
         raise AssertionError(f"node eval: events {events} vs {ref_events}, launches {launches}")
     n_cpu, t_cpu = NODE_CPU
     t0 = time.perf_counter()
-    small = {}
-    for dev in ("cuda", "cpu"):
-        with timed_part("node eval card vs CPU", device=dev, nodes=n_cpu, length=t_cpu):
-            small[dev] = node_eval.run_node_eval(n_cpu, t_cpu, device=dev)
+    with timed_part("node eval card vs CPU", device="cuda", nodes=n_cpu, length=t_cpu):
+        small = {"cuda": node_eval.run_node_eval(n_cpu, t_cpu, device="cuda")}
+    small["cpu"] = BG.result("node_cpu")
     node_cpu_s = time.perf_counter() - t0
     for k in ("raw", "loglik"):
         if not np.array_equal(small["cuda"][k], small["cpu"][k]):
@@ -4321,6 +4504,147 @@ def phase_sched(seed: int, card: str, serve_row: dict) -> dict:
     return row
 
 
+def _plane_watch(root_pid: int, stop: threading.Event, seen: dict) -> threading.Thread:
+    """Until `stop`: every 0.25 s, each descendant of `root_pid` that is a
+    ``--control-only`` plane or a drill member, and whether it has the
+    card's device files open (`_holds_the_card`); each plane pid once in
+    ``nvidia-smi --query-compute-apps`` too, a second after it was seen.
+    -> seen = {"plane": {pid: {"holds_the_card", "in_nvidia_smi"}},
+    "member": {pid: holds}}."""
+    def run():
+        while not stop.is_set():
+            for pid in _descendants(root_pid):
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        argv = f.read().split(b"\0")
+                    if b"--control-only" in argv:
+                        row = seen["plane"].setdefault(pid, {"holds_the_card": False,
+                                                             "seen": time.monotonic()})
+                        row["holds_the_card"] |= _holds_the_card(pid)
+                        if "in_nvidia_smi" not in row and time.monotonic() - row["seen"] > 1:
+                            row["in_nvidia_smi"] = str(pid) in _gpu_apps().replace(",", " ").split()
+                    elif b"--spare" in argv:
+                        seen["member"][pid] = seen["member"].get(pid, False) \
+                            or _holds_the_card(pid)
+                except OSError:
+                    continue  # it ended between the listing and the read
+            stop.wait(0.25)
+
+    t = threading.Thread(target=run, name="chip-smoke-plane-watch", daemon=True)
+    t.start()
+    return t
+
+
+def phase_fleet_chaos(card: str) -> dict:
+    """26: ``python -m rtap_tpu_torch.fleet_chaos --device cuda`` as a child:
+    two control-plane shards of CONTROL_STREAMS full-width streams (one
+    group each) -> the row, with each life's and each reference's launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="rtap-fleet-chaos-")
+    out, err = os.path.join(work, "report.json"), os.path.join(work, "stderr")
+    fc = FLEET_CHAOS
+    cmd = [sys.executable, "-m", "rtap_tpu_torch.fleet_chaos", "--device", "cuda",
+           "--seed", str(fc["seed"]), "--streams", str(CONTROL_STREAMS),
+           "--group-size", str(CONTROL_STREAMS), "--ticks", str(fc["ticks"]),
+           "--cadence", str(fc["cadence"]), "--checkpoint-every", str(fc["checkpoint_every"]),
+           "--workdir", os.path.join(work, "w"), "--out", out]
+    seen: dict = {"plane": {}, "member": {}}
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    try:
+        with open(err, "w") as ef:
+            p = spawn_child(cmd, cwd=here, stdout=subprocess.DEVNULL, stderr=ef)
+            watch = _plane_watch(p.pid, stop, seen)
+            try:
+                rc = p.wait(timeout=DEADLINE.cap(600))
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+                raise
+            finally:
+                stop.set()
+                watch.join(timeout=30)
+        part("fleet_chaos child", time.perf_counter() - t0)
+        with open(err) as f:
+            log_tail = f.read()[-4000:]
+        if rc != 0 or not os.path.exists(out):
+            raise AssertionError(f"26: fleet_chaos exited {rc}:\n{log_tail}")
+        with open(out) as f:
+            rep = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ticks, budget = fc["ticks"], rep["takeover_budget_ticks"]
+    lives = [ln for i in sorted(rep["stats_lines"]) for ln in rep["stats_lines"][i]]
+    promotions = [p for s in rep["shards_verdict"] for p in s["promotions"]]
+    grants = rep["control_journal"]["grants_per_shard"]
+    checks = {
+        # the JAX twin's assertions (tests/integration/test_fleet_chaos.py)
+        "verified": rep["verified"],
+        "leader_kills": len(rep["leader_kills"]) == 2,
+        "standby_kill": rep["standby_kill"] is not None,
+        "outage_survived": bool(rep["control_outage"]
+                                and rep["control_outage"]["leaders_survived"]
+                                and rep["control_outage"]["degraded_ticks_fleet"] > 0),
+        "fence_rc_7": (rep["fence_round"] or {}).get("rc") == 7,
+        "drain_rc_0": (rep["drain_round"] or {}).get("rc") == 0,
+        "exactly_once": all(s["duplicated"] == s["lost"] == s["extra"] == 0
+                            and s["state_leaves_compared"] > 0
+                            for s in rep["shards_verdict"]),
+        "grants_rise": all(eps == sorted(set(eps)) for eps in grants.values()),
+        "degraded_ticks_stats": rep["degraded_ticks_stats"] > 0,
+        # and the card's
+        "alert_ids": all(s["alert_ids"] == CONTROL_STREAMS * ticks
+                         for s in rep["shards_verdict"]),
+        "lives_launch_their_learned_ticks": bool(lives) and all(
+            ln["kernel_launches"] == ln["learned_group_ticks"] for ln in lives),
+        "references_launch_every_tick": [(r or {}).get("kernel_launches")
+                                         for r in rep["reference_lines"]] == [ticks, ticks],
+        "detect_within_budget": bool(promotions) and all(
+            p["detect_ticks"] is not None and p["detect_ticks"] <= budget for p in promotions),
+        "no_unscheduled_fence": not rep["unscheduled_fences"],
+        "plane_without_cuda": len(seen["plane"]) == 2 and not any(
+            r["holds_the_card"] or r.get("in_nvidia_smi", True)
+            for r in seen["plane"].values()),
+        "members_hold_the_card": any(seen["member"].values()),
+    }
+    launches = {f"ref{i}": (r or {}).get("kernel_launches")
+                for i, r in enumerate(rep["reference_lines"])}
+    for i in sorted(rep["stats_lines"]):
+        for j, ln in enumerate(rep["stats_lines"][i]):
+            launches[f"shard{i}_{j}_{ln['name']}"] = ln["kernel_launches"]
+    for name, secs in rep["timing"].items():
+        part(f"fleet_chaos {name}", secs)
+    row = dict(
+        streams_per_shard=CONTROL_STREAMS, ticks=ticks, cadence_s=fc["cadence"],
+        lease_timeout_s=rep["lease_timeout_s"], schedule=rep["schedule"],
+        fired_at_ticks=rep["fired_at_ticks"],
+        promotions=[dict(shard=s["shard"], **p) for s in rep["shards_verdict"]
+                    for p in s["promotions"]],
+        leader_kills=rep["leader_kills"], standby_kill=rep["standby_kill"],
+        control_outage=rep["control_outage"], control_lives=rep["control_lives"],
+        degraded_ticks=dict(fleet=rep["degraded_ticks_total"],
+                            stats=rep["degraded_ticks_stats"], events=rep["degraded_events"]),
+        fence_round=rep["fence_round"], drain_round=rep["drain_round"],
+        grants_per_shard=grants,
+        alert_ids=[s["alert_ids"] for s in rep["shards_verdict"]],
+        life_launches=[{k: ln.get(k) for k in ("name", "shard", "kernel_launches",
+                                               "learned_group_ticks", "ran", "fenced",
+                                               "drained", "stopped")} for ln in lives],
+        children=[{k: c.get(k) for k in ("name", "start_to_warm_s", "release_to_role_s",
+                                          "start_to_role_s", "role")} for c in rep["lives"]],
+        reference_s=rep["reference_s"], timing=rep["timing"], wall_s=rep["wall_s"],
+        planes={pid: {k: r.get(k) for k in ("holds_the_card", "in_nvidia_smi")}
+                for pid, r in seen["plane"].items()},
+        members_holding_the_card=sum(seen["member"].values()),
+        seconds=time.perf_counter() - t0, card=card)
+    emit("fleet_chaos", **row)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"26: fleet chaos checks failed {bad}: {rep['failures']}\n"
+                             f"{log_tail}")
+    return dict(row, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4334,9 +4658,12 @@ def main() -> int:
                          '{"phase": "deadline", ...} line naming that phase and exits '
                          f"{DEADLINE_RC}")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-refs", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
+    if args.cpu_refs:  # the background CPU references: no card by design
+        return run_cpu_refs(args)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4392,6 +4719,8 @@ def main() -> int:
                       | {ln.strip() for ln in out.splitlines()
                          if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln}))
     mark(2)
+    # the CPU references, in one background process from here on
+    BG.start(args.seed)
 
     cmp_rows = []
     # 3. kernel vs plain on learned states
@@ -4438,7 +4767,9 @@ def main() -> int:
     rows["serve_model_side"] = phase_serve_model_side(args.seed, smi,
                                                       serve_row)["kernel_launches"]
     mark(8)
-    # 9. flags on vs off, and the reducers card vs CPU
+    # 9. flags on vs off, and the reducers card vs CPU; the background's
+    # other jobs start with it (none overlaps the serve phases 6-8)
+    BG.go()
     rows["flags_on"] = phase_flags_on_off(args.seed, smi)["launches_on"]
     mark(9)
     # 10. the cascade eval on the card, then killed and resumed
@@ -4530,6 +4861,10 @@ def main() -> int:
     rows["sched_reference"] = sched["reference_launches"]
     torch.cuda.empty_cache()
     mark(25)
+    # 26. the fleet chaos drill: two control-plane shards of 1,024 streams
+    rows.update({f"fleet_chaos_{k}": n for k, n in phase_fleet_chaos(smi)["launches"].items()})
+    mark(26)
+    BG.join()
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     kern = {
         "name": "tm_learn", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4549,4 +4884,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run_guarded(main))
+    try:
+        sys.exit(run_guarded(main))
+    finally:
+        BG.kill()  # whatever ended the run, the background references end with it

@@ -136,15 +136,14 @@ def parse_alert_stream(path: str) -> dict:
 
 def load_checkpoints(ckdir: str) -> dict:
     """Every group checkpoint of a dir -> {group name: (meta, state tree)}."""
-    from pathlib import Path
-
-    from rtap_tpu_torch.service.checkpoint import _read_tree
+    from rtap_tpu_torch.service.ckpt_tree import read_npy_tree
 
     out = {}
     for name in sorted(os.listdir(ckdir)):
-        path = Path(ckdir, name)
-        if name.startswith("group") and (path / "meta.json").is_file():
-            out[name] = (json.loads((path / "meta.json").read_text()), _read_tree(path / "state"))
+        meta = os.path.join(ckdir, name, "meta.json")
+        if name.startswith("group") and os.path.isfile(meta):
+            with open(meta) as f:
+                out[name] = (json.load(f), read_npy_tree(os.path.join(ckdir, name, "state")))
     return out
 
 

@@ -19,7 +19,9 @@ SIGSTOPs the leader instead: the standby promotes while the old leader is
 paused, and on SIGCONT the zombie must discover the fence, append NOTHING
 to the alert sink and exit ``FENCED_RC``. With ``--fleet`` (the default)
 this process hosts a fleet aggregator and every child is a member: the
-takeovers must also show on the plane. The run FAILS (exit 5) unless:
+takeovers must also show on the plane. The fault-free reference runs
+beside the pair, and the verdict waits for it. The run FAILS (exit 5)
+unless:
 
 - the final checkpoint state (every leaf of every group) is BIT-IDENTICAL
   to a fault-free single-process run over the same seeded feed,
@@ -424,10 +426,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.child:
         return run_child(args)
 
-    from rtap_tpu_torch.chaos_soak import compare_states, parse_alert_stream
-    from rtap_tpu_torch.resilience.journal import last_journal_tick
-    from rtap_tpu_torch.resilience.replicate import FENCED_RC
-
     workdir = args.workdir or tempfile.mkdtemp(prefix="failover_soak_")
     ref_dir = os.path.join(workdir, "ref")
     ha_dir = os.path.join(workdir, "ha")
@@ -436,13 +434,24 @@ def main(argv: list[str] | None = None) -> int:
     t_all = time.monotonic()
     failures: list[str] = []
 
-    # 1. fault-free single-process reference over the identical feed
+    # 1. fault-free single-process reference over the identical feed, run
+    # beside the HA pair (an independent process; the verdict waits for it)
     log(f"reference run ({args.ticks} ticks, {args.streams} streams, "
         f"device {args.device or 'cuda'})")
-    rc = subprocess.run(child_cmd(args, ref_dir, ref=True)).returncode
-    if rc != 0:
-        log(f"FATAL: reference run failed rc={rc}")
-        return INFRA_FAILED_EXIT
+    ref = subprocess.Popen(child_cmd(args, ref_dir, ref=True))
+    try:
+        return _soak(args, workdir, ref_dir, ha_dir, ref, t_all, failures)
+    finally:
+        if ref.poll() is None:  # an early exit: the reference goes with it
+            ref.kill()
+            ref.wait()
+
+
+def _soak(args, workdir: str, ref_dir: str, ha_dir: str, ref: subprocess.Popen,
+          t_all: float, failures: list[str]) -> int:
+    from rtap_tpu_torch.chaos_soak import compare_states, parse_alert_stream
+    from rtap_tpu_torch.resilience.journal import last_journal_tick
+    from rtap_tpu_torch.resilience.replicate import FENCED_RC
 
     # 2. the HA pair: A first (acquires the lease), then B (standby).
     # The parent hosts the fleet aggregator IN-PROCESS (Python API, no
@@ -641,7 +650,13 @@ def main(argv: list[str] | None = None) -> int:
                 p.wait()
                 failures.append(f"standby {name} ignored SIGTERM")
 
-    # 6. verdict
+    # 6. verdict, once the reference has finished
+    rc = ref.wait()
+    if rc != 0:
+        log(f"FATAL: reference run failed rc={rc}")
+        if agg is not None:
+            agg.close()
+        return INFRA_FAILED_EXIT
     ref_alerts = parse_alert_stream(os.path.join(ref_dir, "alerts.jsonl"))
     got_alerts = parse_alert_stream(os.path.join(ha_dir, "alerts.jsonl"))
     if got_alerts["dup"]:

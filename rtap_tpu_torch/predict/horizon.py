@@ -120,6 +120,9 @@ class PredictTracker:
         self.warmup_ticks = int(warmup_ticks)
         self.rearm_frac = float(rearm_frac)
         self.sink = sink
+        #: optional: takes a list of events and writes them at once
+        #: (AlertWriter.emit_events; live_loop wires it with ``sink``)
+        self.sink_batch = None
         self.flight = flight
         self.blast = blast
         # fold runs on the serve loop thread; snapshot/scorecard/stats on
@@ -255,13 +258,25 @@ class PredictTracker:
             # page leads the score spike by up to k ticks
             "predicted_lead_ticks": self.horizon,
         }
-        self._emit(ev)
+        evs = [ev]
         if self.blast is not None:
             inc = self.blast.precursor(stream, tick, ev)
             if inc is not None:
-                self._emit(inc)
+                evs.append(inc)
+        kept = [e for e in evs if self._emit(e)]
+        if self.sink_batch is not None and len(kept) > 1:
+            # the page and the incident it opens in one write: a process
+            # killed between two writes would leave the page without its
+            # incident, and the resumed tracker (latches not checkpointed)
+            # opens another one ticks later
+            self.sink_batch(kept)
+        elif self.sink is not None:
+            for e in kept:
+                self.sink(e)
 
-    def _emit(self, ev: dict) -> None:
+    def _emit(self, ev: dict) -> bool:
+        """Count and record one event; False for a suppressed replay. The
+        caller hands the kept events to the sink."""
         kind = ev["event"]
         aid = ev.get("alert_id")
         if aid is not None and aid in self._suppress:
@@ -269,7 +284,7 @@ class PredictTracker:
             # line already on disk — do not page twice
             self._suppress.discard(aid)
             self.events_suppressed += 1
-            return
+            return False
         self.events_total += 1
         self._events_by_kind[kind] = self._events_by_kind.get(kind, 0) + 1
         counter = self._obs_events.get(kind)
@@ -280,8 +295,7 @@ class PredictTracker:
             # capture the window that led here
             self.flight.record_event(ev)
             self.flight.request_dump(kind, ev.get("tick", -1))
-        if self.sink is not None:
-            self.sink(ev)
+        return True
 
     def _set_fleet_gauges(self) -> None:
         gs = list(self._groups.values())

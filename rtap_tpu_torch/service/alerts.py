@@ -186,7 +186,7 @@ class AlertWriter:
         """Write + maybe flush, retry once, quarantine via the breaker.
         Never raises; failed/skipped lines are counted in ``dropped``.
         Returns True iff the lines were handed to the sink (one
-        writelines call: all or nothing)."""
+        writelines call of one string: all or nothing)."""
         if self._fh is None or not lines:
             return False
         if self._fence is not None and not self._fence():
@@ -202,7 +202,11 @@ class AlertWriter:
         for attempt in (1, 2):
             try:
                 if not wrote:
-                    self._fh.writelines(lines)
+                    # the batch as ONE string: line by line, the text layer
+                    # hands the OS ~8 KB at a time, and a leader paused
+                    # mid-batch would finish a tick's lines after its
+                    # standby took over
+                    self._fh.writelines(["".join(lines)])
                     wrote = True
                     self._offset += sum(len(ln.encode("utf-8", "replace"))
                                         for ln in lines)
@@ -317,11 +321,18 @@ class AlertWriter:
         """Write one structured event line. Events carry an "event" key,
         serialized first whatever the caller's dict order (consumers split
         on the literal prefix '{"event"'), and flush immediately."""
-        if "event" not in event:
-            raise ValueError(f"structured events need an 'event' key: {event}")
-        self._obs_events.inc()
+        self.emit_events([event])
+
+    def emit_events(self, events: list[dict]) -> None:
+        """Write several event lines in one write and flush: a process
+        killed during the call leaves all of them in the sink or none (a
+        precursor and the predicted_incident it opens go together)."""
+        for event in events:
+            if "event" not in event:
+                raise ValueError(f"structured events need an 'event' key: {event}")
+        self._obs_events.inc(len(events))
         self._safe_write(
-            [json.dumps({"event": event["event"], **event}) + "\n"],
+            [json.dumps({"event": ev["event"], **ev}) + "\n" for ev in events],
             force_flush=True)
 
     def close(self) -> None:

@@ -37,6 +37,7 @@ from rtap_tpu_torch.config import ModelConfig
 from rtap_tpu_torch.models.migrate import sparse_pool_width, sparsify_config, sparsify_sp_state
 from rtap_tpu_torch.models.state import state_from_numpy, state_to_numpy
 from rtap_tpu_torch.obs import get_registry
+from rtap_tpu_torch.service.ckpt_tree import read_npy_tree
 from rtap_tpu_torch.service.registry import PAD_PREFIX, StreamGroup
 
 BACKEND = "torch"
@@ -49,16 +50,6 @@ def _write_tree(root: Path, tree: dict) -> None:
             _write_tree(root / k, v)
         else:
             np.save(root / f"{k}.npy", np.asarray(v), allow_pickle=False)
-
-
-def _read_tree(root: Path) -> dict:
-    out = {}
-    for p in sorted(root.iterdir()):
-        if p.is_dir():
-            out[p.name] = _read_tree(p)
-        elif p.suffix == ".npy":
-            out[p.stem] = np.load(p, allow_pickle=False)
-    return out
 
 
 def save_group(grp: StreamGroup, path: str | Path,
@@ -185,6 +176,11 @@ def _read_jax_tree(path: Path, meta: dict, stats: ImportStats) -> dict:
     return tree
 
 
+class CheckpointReplaced(OSError):
+    """A concurrent save swapped the checkpoint directory during a read; a
+    re-read gets one save's meta and leaves together."""
+
+
 def load_group(path: str | Path, device=None, sparsify: bool = False) -> StreamGroup:
     """Rebuild a StreamGroup from `path` on `device` (``cuda`` unless
     given), its state leaves in their stored dtypes; scoring continues
@@ -204,11 +200,16 @@ def load_group(path: str | Path, device=None, sparsify: bool = False) -> StreamG
     ``pool_members``, and scoring continues bit-identically to the dense
     run. Sparse checkpoints are untouched."""
     path = _recover_residue(Path(path).absolute())
+    # a standby adopts checkpoints while its leader saves into the same dir:
+    # a save that swaps the directory between the meta and the state reads
+    # would pair one save's meta with another's leaves, so the read must
+    # end in the directory it started in
+    dir_ino = path.stat().st_ino
     meta = json.loads((path / "meta.json").read_text())
     backend = meta.get("backend")
     stats = None
     if backend == BACKEND:
-        tree = _read_tree(path / "state")
+        tree = read_npy_tree(path / "state")
     elif backend == "tpu":
         stats = ImportStats()
         tree = _read_jax_tree(path, meta, stats)
@@ -220,6 +221,8 @@ def load_group(path: str | Path, device=None, sparsify: bool = False) -> StreamG
             "imported — resave the group from the JAX batched backend")
     else:
         raise ValueError(f"checkpoint {path} names an unknown backend {backend!r}")
+    if path.stat().st_ino != dir_ino:
+        raise CheckpointReplaced(f"checkpoint {path} was replaced by a save while it was read")
     cfg = ModelConfig.from_dict(meta["config"])
     if sparsify and not cfg.sp.sparse_pool:
         model = {k: np.asarray(v) for k, v in tree["model"].items()}

@@ -494,6 +494,8 @@ def live_loop(
             continue
         if tracker.sink is None:
             tracker.sink = writer.emit_event
+            if tracker is predictor:
+                tracker.sink_batch = writer.emit_events
         if tracker.flight is None:
             tracker.flight = flight
         if flight is not None and getattr(flight, provider) is None:

@@ -8,6 +8,8 @@
 * The tolerant line iterator and the suppression scan agree.
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +124,44 @@ def test_sink_failures_quarantine_and_restore(tmp_path):
     lines = (tmp_path / "a.jsonl").read_text().splitlines()
     assert lines[0].startswith('{"alert_id": "0:a:5"')
     assert lines[1] == '{"event": "alert_sink_restored", "lines_dropped": 5}'
+
+
+class _RawSink(io.RawIOBase):
+    """A sink that records each write the OS would see."""
+
+    def __init__(self):
+        self.writes: list[bytes] = []
+
+    def writable(self):
+        return True
+
+    def write(self, b):
+        self.writes.append(bytes(b))
+        return len(b)
+
+
+def test_a_tick_batch_reaches_the_sink_in_one_write_unlike_the_reference(tmp_path):
+    """A full-width tick's alert batch (1,024 lines, ~200 KB) goes to the
+    sink in one write in the port. The reference's ``writelines`` hands it
+    over ~8 KB at a time, so a leader SIGSTOPped mid-batch finishes the
+    tick's lines after it wakes, past its fence check, duplicating the ids
+    its promoted standby spliced in the meantime (the fleet chaos drill's
+    fence round at 1,024 streams per shard; ROADMAP.md §C). The bytes are
+    the same."""
+    ids = [f"n{i // 3}.m{i % 3}" for i in range(1024)]
+    got = {}
+    for mod in (ta, ja):
+        rng = np.random.default_rng(3)
+        w = mod.AlertWriter(str(tmp_path / f"{mod.__name__}.jsonl"))
+        w._fh.close()
+        sink = _RawSink()
+        w._fh = io.TextIOWrapper(io.BufferedWriter(sink), encoding="utf-8")
+        w.emit_batch(ids, np.full(1024, 1_700_000_152), rng.random(1024).astype(np.float32),
+                     rng.random(1024).astype(np.float32), rng.random(1024) * 0.1,
+                     np.ones(1024, bool), group=0, tick=152)
+        w.flush_sink()
+        got[mod] = sink.writes
+    assert b"".join(got[ta]).count(b"\n") == 1024
+    assert len(got[ta]) == 1
+    assert len(got[ja]) > 1  # the reference's split batch
+    assert b"".join(got[ta]) == b"".join(got[ja])

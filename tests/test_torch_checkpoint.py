@@ -267,3 +267,35 @@ def test_peek_resume_ticks(tmp_path):
     (tmp_path / "other").mkdir()
     assert peek_resume_ticks(tmp_path) == 5
     assert peek_resume_ticks(tmp_path) == jck.peek_resume_ticks(tmp_path)
+
+
+def test_a_save_swapping_the_dir_under_a_read_is_refused_not_torn(tmp_path, monkeypatch):
+    """A standby adopts checkpoints while its leader saves into the same dir.
+    A save whose swap lands between load_group's meta read and its state
+    read used to pair the old meta (tick 3) with the new leaves (tick 5): the
+    standby then re-applied ticks 3-4 on top and its state diverged from the
+    fault-free run (the fleet chaos drill, where a warm spare starts reading
+    within milliseconds of its shard's takeover checkpoint; ROADMAP.md §C).
+    The read now refuses a replaced directory, and a re-read is consistent."""
+    import rtap_tpu_torch.service.checkpoint as ck
+
+    grp = _group(ticks=3)
+    save_group(grp, tmp_path / "g")
+    for i in (3, 4):
+        grp.tick(np.array([1.0 + i, 2.0 + i], np.float32), 1_700_000_000 + i)
+    real, swapped = ck.read_npy_tree, []
+
+    def read_during_a_save(root):
+        if not swapped:  # the leader's next save lands mid-read
+            swapped.append(True)
+            save_group(grp, tmp_path / "g")
+        return real(root)
+
+    monkeypatch.setattr(ck, "read_npy_tree", read_during_a_save)
+    with pytest.raises(ck.CheckpointReplaced):
+        load_group(tmp_path / "g", device="cpu")
+    back = load_group(tmp_path / "g", device="cpu")  # the re-read
+    assert back.ticks == 5
+    a, b = _leaves(grp), _leaves(back)
+    for k in a:
+        assert np.array_equal(a[k], b[k], equal_nan=True), k

@@ -59,6 +59,7 @@ def test_scan_covers_the_package():
             "rtap_tpu_torch/ingest/shm.py", "rtap_tpu_torch/ingest/emit.py",
             "rtap_tpu_torch/ingest/server.py", "rtap_tpu_torch/ingest_bench.py",
             "rtap_tpu_torch/resilience/replicate.py", "rtap_tpu_torch/failover_soak.py",
+            "rtap_tpu_torch/fleet_chaos.py",
             "rtap_tpu_torch/fleet/__init__.py", "rtap_tpu_torch/fleet/protocol.py",
             "rtap_tpu_torch/fleet/member.py", "rtap_tpu_torch/fleet/aggregator.py",
             "rtap_tpu_torch/fleet/stitch.py", "rtap_tpu_torch/fleet/verdict.py",

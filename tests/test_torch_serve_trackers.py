@@ -178,6 +178,37 @@ def test_live_loop_with_trackers_matches_jax(tmp_path, depth):
     assert os.path.exists(tmp_path / "torch.jsonl.corr")
 
 
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_a_page_and_the_incident_it_opens_reach_the_sink_in_one_write_unlike_the_reference(
+        tmp_path, monkeypatch, pkg):
+    """A process killed between two writes leaves a precursor in the sink
+    without the predicted_incident it opened; the resumed tracker (its
+    latches are not checkpointed) then opens another incident ticks later.
+    The port hands the pair to the sink in one write; the reference writes
+    each event alone."""
+    if pkg == "jax":
+        from rtap_tpu.service import alerts as mod
+        loop = j_live_loop
+    else:
+        from rtap_tpu_torch.service import alerts as mod
+        loop = live_loop
+    writes = []
+    write = mod.AlertWriter._safe_write
+
+    def spy(self, lines, force_flush=False):
+        writes.append([json.loads(ln) for ln in lines if ln.startswith('{"event"')])
+        return write(self, lines, force_flush)
+
+    monkeypatch.setattr(mod.AlertWriter, "_safe_write", spy)
+    loop(Feed(), _registry(pkg), n_ticks=70, cadence_s=0.0,
+         alert_path=str(tmp_path / "alerts.jsonl"), **_trackers(pkg))
+    opened = [(w, ev) for w in writes for ev in w if ev["event"] == "predicted_incident"]
+    assert opened
+    for w, inc in opened:
+        with_page = [ev["alert_id"] for ev in w if ev["event"] == "precursor"]
+        assert (with_page == inc["precursors"][:1]) == (pkg == "torch"), (w, inc)
+
+
 def test_trackers_on_vs_off_leave_state_and_alerts_unchanged(tmp_path):
     runs = {}
     for name, on in (("on", True), ("off", False)):

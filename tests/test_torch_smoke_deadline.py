@@ -3,7 +3,9 @@ that imports chip_smoke (and never runs its main) arms a 1 s deadline,
 names a phase, and waits under ``run_guarded`` (what chip_smoke's main runs
 under) on a child that sleeps 30 s. The run must fail
 within a few seconds with the deadline's line naming that phase, exit with
-the deadline's code, and leave the child killed."""
+the deadline's code, and leave the child killed. The background process
+of the CPU references (``chip_smoke.CpuRefs``) is such a child, and its
+failure, or a job it reports failed, fails the run."""
 
 import json
 import os
@@ -11,6 +13,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -65,3 +69,57 @@ def test_an_unarmed_deadline_caps_nothing():
 
     d = chip_smoke.Deadline()
     assert d.cap(7.5) == 7.5 and not d.passed() and d.left() == float("inf")
+
+
+BACKGROUND = """
+import json, sys, time
+import chip_smoke as cs
+cs.DEADLINE.arm(1.0, start=time.monotonic())
+cs.DEADLINE.begin("11 nab corpus")
+cs.BG.start(0, cmd=[sys.executable, "-c", "import time; time.sleep(30)"])
+print(json.dumps({"background": cs.BG.proc.pid}), flush=True)
+cs.run_guarded(lambda: cs.BG.result("nab_prefix"))
+print("after the wait", flush=True)
+"""
+
+
+def test_the_background_references_are_killed_at_the_deadline():
+    """The background CPU references' process is one of the run's children:
+    a deadline reached while a phase waits for its result kills it."""
+    p = subprocess.run([sys.executable, "-c", BACKGROUND], cwd=REPO, capture_output=True,
+                       text=True, timeout=60, env={**os.environ, "PYTHONPATH": str(REPO)})
+    lines = [json.loads(ln) for ln in p.stdout.splitlines() if ln.startswith("{")]
+    import chip_smoke
+
+    assert p.returncode == chip_smoke.DEADLINE_RC, (p.returncode, p.stdout, p.stderr)
+    assert "after the wait" not in p.stdout
+    bg, dead = lines[0], lines[-1]
+    assert dead["phase"] == "deadline" and dead["running"] == "11 nab corpus"
+    assert dead["children_killed"] >= 1 and not _alive(bg["background"])
+
+
+FAILING = {
+    # the process ends without the result a phase waits for
+    "exited": ("import sys; sys.exit(3)", "exited 3 without eval_cpu"),
+    # the job ran and failed: its pickle says so
+    "job_failed": ("import os, pickle, sys; d = sys.argv[-1]; "
+                   "pickle.dump((False, 'ValueError: boom', 0.5), "
+                   "open(os.path.join(d, 'eval_cpu.pkl'), 'wb'))", "eval_cpu failed: ValueError"),
+}
+
+
+@pytest.mark.parametrize("case", list(FAILING))
+def test_a_failed_background_reference_fails_the_run(case):
+    code, needle = FAILING[case]
+    script = (
+        "import sys, time\n"
+        "import chip_smoke as cs\n"
+        "cs.DEADLINE.arm(60.0, start=time.monotonic())\n"
+        f"cs.BG.start(0, cmd=[sys.executable, '-c', {code!r}])\n"
+        "sys.exit(cs.run_guarded(lambda: (cs.BG.result('eval_cpu'), 0)[1]))\n")
+    p = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+                       timeout=60, env={**os.environ, "PYTHONPATH": str(REPO)})
+    import chip_smoke
+
+    assert p.returncode not in (0, chip_smoke.DEADLINE_RC), (p.returncode, p.stderr)
+    assert "AssertionError: background CPU references: " + needle in p.stderr, p.stderr[-2000:]
